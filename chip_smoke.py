@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and run its raw-image -> pose step on
-one NVIDIA GPU: the quickest proof that `uvio_tpu_torch` works on the card.
+"""Build the port's CUDA kernels and run its raw-image -> pose step and
+its UWB + SLAM filter step on one NVIDIA GPU: the quickest proof that
+`uvio_tpu_torch` works on the card.
 
     python3 chip_smoke.py
 
@@ -18,6 +19,18 @@ Phases, each printing one JSON line:
               a float32 state; gates of tests/test_fused_vio.py; 1 fast9
               and 4 lk_level launches per step; median per-frame time over
               3 warm repetitions.
+  6. full_step — `pipeline.full_filter_step` replays the 100 frames of the
+              committed fixture (`bench.py`'s scenario: seed 7, 25 SLAM
+              slots, 4 UWB anchors) on cuda:0. float64: every info equal
+              to the JAX float64 replay's, position within 1e-6 m and
+              trace(cov) within 1e-6 relative on every frame. float32 (with
+              float64 time): cov_ok on every frame, final position within
+              2 cm of the JAX float32 replay's, RMS error against ground
+              truth at most the JAX one's + 2 cm, accepted ranges within 2%,
+              all 25 SLAM slots full at the end; median per-frame time over
+              3 warm repetitions; host syncs over one whole warm replay,
+              with how many frames took each branch of the plan. It runs no hand
+              kernel (its inputs are features, not images).
 Then the kernel table, the `nvidia-smi` line, and the result line.
 Needs no network; any failed check raises.
 """
@@ -71,6 +84,176 @@ def render(n_frames):
     if len(imgs) != n_frames:
         raise RuntimeError(f"simulator gave {len(imgs)} of {n_frames} frames")
     return sim, imgs, stamps, np.asarray(imu)
+
+
+def slice_steps(dev, sim, imgs, stamps, imu):
+    """The fused image -> pose step on the rendered frames, float32 state
+    on `dev`: (steps, step, make_carry, st0, frames, windows), where
+    steps() runs the 59 steps from the first frame and yields
+    (state, info) after each."""
+    import numpy as np
+    import torch
+
+    from uvio_tpu_torch.filter.propagator import select_imu_readings_np
+    from uvio_tpu_torch.frontend.fused_vio import make_fused_vio_step
+    from uvio_tpu_torch.types import StateLayout, init_state
+
+    cam = sim.params.cameras[0]
+    layout = StateLayout(max_clones=11, max_imu_batch=32, max_slam=0)
+    step, make_carry = make_fused_vio_step(layout, cam.intrinsics, cam.model, device=dev,
+                                           sigma_pix=2.0)
+    f32, f64 = torch.float32, torch.float64
+    g0 = sim.get_gt_state(stamps[0])
+    st0 = init_state(layout, dtype=f32, device=dev)
+    on = lambda x, dt=f32: torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+    st0 = st0.replace(
+        time=on(stamps[0], f64), q=on(g0["q_GtoI"]), p=on(g0["p_IinG"]), v=on(g0["v_IinG"]),
+        bg=on(g0["bg"]), ba=on(g0["ba"]), q_fej=on(g0["q_GtoI"]), p_fej=on(g0["p_IinG"]),
+        v_fej=on(g0["v_IinG"]), calib_cam_q=on(cam.q_ItoC)[None], calib_cam_p=on(cam.p_IinC)[None],
+        calib_cam_intr=on(cam.intrinsics)[None],
+        cov=on(np.diag([1e-5] * 6 + [1e-4] * 3 + [1e-5] * 6 + [0.0] * (layout.dim - 15))),
+    )
+    frames = [on(im) for im in imgs]
+    windows, cur = [], stamps[0]
+    for i in range(1, len(stamps)):
+        t, w, a = select_imu_readings_np(imu[:, 0], imu[:, 1:4], imu[:, 4:7], cur, stamps[i],
+                                         layout.max_imu_batch)
+        windows.append((on(t, f64), on(w, f64), on(a, f64), on(stamps[i], f64)))
+        cur = stamps[i]
+
+    def steps():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        st, carry = st0, make_carry(frames[0])
+        for i, (t, w, a, ts) in enumerate(windows):
+            st, carry, info = step(st, carry, frames[i + 1], t, w, a, ts, generator=gen)
+            yield st, info
+
+    return steps, step, make_carry, st0, frames, windows
+
+
+INFO_KEYS = ("slam_kept", "slam_failed", "slam_inited", "uwb_accepted", "cov_ok")
+
+
+def _frame_infos(info):
+    """The per-frame infos the fixture records, as numpy."""
+    out = {k: info[k].cpu().numpy() for k in INFO_KEYS}
+    out["num_used"] = info["msckf"]["num_used"].cpu().numpy()
+    out["msckf_kept"] = info["msckf"]["kept"].cpu().numpy()
+    return out
+
+
+def full_step_inputs(dev, dtype):
+    """The committed fixture, the full step, the host plans of its 100
+    bundles, and the bundles and initial state uploaded to `dev` in
+    `dtype`: (fx, step, plans, bundles, st0)."""
+    from uvio_tpu_torch.fixtures import load_full_step_fixture
+    from uvio_tpu_torch.pipeline import FullStepConfig, bundle_from_numpy, make_full_step, plan_frame
+    from uvio_tpu_torch.types.state import state_from_numpy
+
+    fx = load_full_step_fixture()
+    step = make_full_step(FullStepConfig.from_dict(fx.config))
+    plans, t = [], float(fx.state0["time"])
+    for b in fx.bundles:
+        plans.append(plan_frame(b, t))
+        t = float(b["stamp_time"])
+    bundles = [bundle_from_numpy(b, dev, dtype) for b in fx.bundles]
+    return fx, step, plans, bundles, state_from_numpy(fx.state0, dev, dtype)
+
+
+def full_step_phase(dev, card):
+    """Replay the fixture through the full step in float64 and float32."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    def replay(dtype):
+        """(run, fx, step, plans, bundles, state0): run() replays every
+        frame, synchronizes and returns per-frame device results."""
+        fx, step, plans, bundles, st0 = full_step_inputs(dev, dtype)
+
+        def run():
+            st, out = st0, []
+            for fb, plan in zip(bundles, plans):
+                st, info = step(st, fb, plan)
+                out.append((st.p, st.cov.trace(), info))
+            torch.cuda.synchronize()
+            return st, out
+
+        return run, fx, step, plans, bundles, st0
+
+    # ---- float64: the same decisions as the JAX float64 replay --------
+    run64, fx, _, _, _, _ = replay(torch.float64)
+    n = len(fx.bundles)
+    st, out = run64()
+    ref = fx.replays["f64"]
+    bad, p_err, tr_err = [], 0.0, 0.0
+    for k, (p, tr, info) in enumerate(out):
+        got = _frame_infos(info)
+        diff = [key for key, v in got.items() if not np.array_equal(v, ref[key][k])]
+        if diff:
+            bad.append({"frame": k, "differs": diff,
+                        "msckf_chi2": info["msckf"]["chi2"].cpu().tolist(),
+                        "slam_chi2": info["slam_chi2"].cpu().tolist(),
+                        "slam_init_chi2": info["slam_init_chi2"].cpu().tolist(),
+                        "uwb_chi2": info["uwb_chi2"].cpu().tolist()})
+        p_err = max(p_err, float(np.abs(p.cpu().numpy() - ref["p"][k]).max()))
+        tr_err = max(tr_err, abs(float(tr) / float(ref["cov_trace"][k]) - 1.0))
+    rec64 = {"phase": "full_step", "precision": "float64", "frames": n, "infos_equal_all": not bad,
+             "max_p_diff_m": p_err, "max_trace_rel_diff": tr_err}
+    log(rec64)
+    if bad or not (p_err <= 1e-6 and tr_err <= 1e-6):
+        for b in bad:
+            log(b)
+        raise RuntimeError("full_step float64 disagrees with the JAX float64 replay")
+
+    # ---- float32: the bench precision, held to the JAX float32 replay -
+    run32, fx, step, plans, bundles, st0 = replay(torch.float32)
+    st, out = run32()
+    ref = fx.replays["f32"]
+    p = np.stack([o[0].cpu().numpy() for o in out]).astype(np.float64)
+    cov_ok = [bool(o[2]["cov_ok"].item()) for o in out]
+    uwb = sum(int(o[2]["uwb_accepted"].sum().item()) for o in out)
+    uwb_ref = int(ref["uwb_accepted"].sum())
+    rms = float(np.sqrt(np.mean(np.sum((p - fx.gt_p) ** 2, axis=1))))
+    rms_ref = float(np.sqrt(np.mean(np.sum((ref["p"] - fx.gt_p) ** 2, axis=1))))
+    final_diff = float(np.linalg.norm(p[-1] - ref["p"][-1]))
+    slots = int(st.slam_valid.sum().item())
+    rec32 = {"phase": "full_step", "precision": "float32", "frames": n, "cov_ok_all": all(cov_ok),
+             "final_p_diff_vs_jax_m": final_diff, "rms_p_err_m": rms, "rms_p_err_jax_m": rms_ref,
+             "uwb_accepted": uwb, "uwb_accepted_jax": uwb_ref, "slam_slots_end": slots}
+    if not (all(cov_ok) and final_diff <= 0.02 and rms <= rms_ref + 0.02
+            and abs(uwb - uwb_ref) <= 0.02 * uwb_ref and slots == fx.config["layout"]["max_slam"]):
+        log(rec32)
+        raise RuntimeError("full_step float32 failed its gates")
+
+    # nothing inside a step should wait for the host; count what does over
+    # one whole warm replay, which takes every branch of the plan
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        st = st0
+        for fb, plan in zip(bundles, plans):
+            st, _ = step(st, fb, plan)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    branches = {"uwb_rows_run": sum(sum(p.uwb_rows) for p in plans),
+                "uwb_rows_skipped": sum(len(p.uwb_rows) - sum(p.uwb_rows) for p in plans),
+                "slam_init_frames": sum(p.slam_init for p in plans),
+                "marg_frames": sum(p.marg for p in plans),
+                "slam_init_and_marg_frames": sum(p.slam_init and p.marg for p in plans),
+                "zupt_try_frames": sum(p.zupt_try for p in plans)}
+    reps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run32()
+        reps.append((time.perf_counter() - t0) / n * 1e3)
+    rec32.update({"per_frame_ms_median": statistics.median(reps), "per_frame_ms_reps": reps,
+                  "host_syncs_in_replay": len(caught), "replay_plans": branches,
+                  "sync_sources": sorted({str(w.message).split("\n")[0][:120] for w in caught}),
+                  "card": card})
+    log(rec32)
 
 
 def main():
@@ -169,39 +352,11 @@ def main():
          "card": card})
 
     # ---- the slice ---------------------------------------------------
-    from uvio_tpu_torch.filter.propagator import select_imu_readings_np
-    from uvio_tpu_torch.frontend.fused_vio import make_fused_vio_step
-    from uvio_tpu_torch.types import StateLayout, init_state
-
-    cam = sim.params.cameras[0]
-    layout = StateLayout(max_clones=11, max_imu_batch=32, max_slam=0)
-    step, make_carry = make_fused_vio_step(layout, cam.intrinsics, cam.model, device=dev,
-                                           sigma_pix=2.0)
-    f32, f64 = torch.float32, torch.float64
-    g0 = sim.get_gt_state(stamps[0])
-    st0 = init_state(layout, dtype=f32, device=dev)
-    on = lambda x, dt=f32: torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
-    st0 = st0.replace(
-        time=on(stamps[0], f64), q=on(g0["q_GtoI"]), p=on(g0["p_IinG"]), v=on(g0["v_IinG"]),
-        bg=on(g0["bg"]), ba=on(g0["ba"]), q_fej=on(g0["q_GtoI"]), p_fej=on(g0["p_IinG"]),
-        v_fej=on(g0["v_IinG"]), calib_cam_q=on(cam.q_ItoC)[None], calib_cam_p=on(cam.p_IinC)[None],
-        calib_cam_intr=on(cam.intrinsics)[None],
-        cov=on(np.diag([1e-5] * 6 + [1e-4] * 3 + [1e-5] * 6 + [0.0] * (layout.dim - 15))),
-    )
-    frames = [on(im) for im in imgs]
-    windows, cur = [], stamps[0]
-    for i in range(1, len(stamps)):
-        t, w, a = select_imu_readings_np(imu[:, 0], imu[:, 1:4], imu[:, 4:7], cur, stamps[i],
-                                         layout.max_imu_batch)
-        windows.append((on(t, f64), on(w, f64), on(a, f64), on(stamps[i], f64)))
-        cur = stamps[i]
+    steps, step, make_carry, st0, frames, windows = slice_steps(dev, sim, imgs, stamps, imu)
 
     def run_slice():
-        gen = torch.Generator(device=dev).manual_seed(0)
-        st, carry = st0, make_carry(frames[0])
         infos = []
-        for i, (t, w, a, ts) in enumerate(windows):
-            st, carry, info = step(st, carry, frames[i + 1], t, w, a, ts, generator=gen)
+        for st, info in steps():
             infos.append(info)
         torch.cuda.synchronize()
         return st, infos
@@ -246,6 +401,8 @@ def main():
                       "host_syncs_in_one_step": len(caught), "sync_sources": sync_ops,
                       "card": card})
     log(slice_rec)
+
+    full_step_phase(dev, card)
 
     log({"kernels": [
         {"name": "fast9", "route": "cuda", "source": "uvio_tpu_torch/csrc/fast9.cu",

@@ -27,7 +27,10 @@ def _t(a):
 def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['uvio_tpu'] = None\n"
-        "import uvio_tpu_torch.frontend.fused_vio, uvio_tpu_torch.sim\n"
+        "import uvio_tpu_torch.frontend.fused_vio, uvio_tpu_torch.sim, uvio_tpu_torch.pipeline\n"
+        "import uvio_tpu_torch.update.slam, uvio_tpu_torch.update.uwb, uvio_tpu_torch.update.zupt\n"
+        "import uvio_tpu_torch.fixtures\n"
+        "uvio_tpu_torch.fixtures.load_full_step_fixture()\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -148,3 +148,70 @@ def test_propagate_and_clone_matches():
                   stamp_time=torch.as_tensor(t1, dtype=torch.float64))
     _assert_states_close(jout, tout, 1e-9)
     assert float(tout.time) == t1
+
+
+def _imu_window(n_rows=60, seed=4):
+    """A 32-sample window (31 inside + interpolated ends, padded by one)
+    of a simulated circle trajectory, with its start and end times."""
+    from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+
+    from uvio_tpu_torch.filter.propagator import select_imu_readings_np
+
+    sim = Simulator(SimParams(sim_freq_imu=200.0, seed=seed), trajectory=circle_trajectory(duration=3.0))
+    rows = [sim.get_next_imu() for _ in range(n_rows)]
+    times = np.array([r[0] for r in rows])
+    ws = np.array([r[1] for r in rows])
+    accs = np.array([r[2] for r in rows])
+    t0, t1 = times[3] + 0.002, times[3] + 0.152
+    return select_imu_readings_np(times, ws, accs, t0, t1, 32), t0, t1
+
+
+@pytest.mark.parametrize("integration", ["discrete", "analytical"])
+def test_propagate_mean_cov_integrations_match(integration):
+    """The two integrators that the rk4 test above leaves out: mean and
+    covariance to 1e-9 (31 interval products, as there)."""
+    from uvio_tpu.filter.propagator import NoiseManager as JN
+    from uvio_tpu.filter.propagator import propagate_mean_cov as j_prop
+
+    from uvio_tpu_torch.filter.propagator import NoiseManager as TN
+    from uvio_tpu_torch.filter.propagator import propagate_mean_cov as t_prop
+
+    win, t0, t1 = _imu_window()
+    layout, js = _random_state(6)
+    js = js.replace(time=jnp.asarray(t0))
+    jout, jw = j_prop(js, layout, *map(jnp.asarray, win), JN(), 9.81, integration=integration)
+    tout, tw = t_prop(_port(js), TLayout(**LAYOUT_KW), *(torch.as_tensor(x) for x in win), TN(), 9.81,
+                      integration=integration)
+    _assert_states_close(jout, tout, 1e-9)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-12)
+    assert float(tout.time) == t1
+
+
+def test_propagate_mean_only_matches():
+    from uvio_tpu.filter.propagator import propagate_mean_only as j_prop
+
+    from uvio_tpu_torch.filter.propagator import propagate_mean_only as t_prop
+
+    win, _, _ = _imu_window(seed=7)
+    _, js = _random_state(7)
+    jq, jp, jv = j_prop(js, *map(jnp.asarray, win), 9.81)
+    tq, tp, tv = t_prop(_port(js), *(torch.as_tensor(x) for x in win), 9.81)
+    for a, b in ((jq, tq), (jp, tp), (jv, tv)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-10)
+    assert np.abs(np.asarray(jp) - np.asarray(js.p)).max() > 1e-2  # the window moved the pose
+
+
+@pytest.mark.parametrize("head", [2, 4])
+def test_oldest_clone_slot_matches(head):
+    from uvio_tpu.types.state import num_clones as j_num
+    from uvio_tpu.types.state import oldest_clone_slot as j_old
+
+    from uvio_tpu_torch.types.state import num_clones as t_num
+    from uvio_tpu_torch.types.state import oldest_clone_slot as t_old
+
+    layout, js = _random_state(8, head=head)
+    # a wrapped ring: slot 0 is newer than the others
+    js = js.replace(clones_t=js.clones_t.at[0].set(20.0))
+    ts = _port(js)
+    assert int(t_old(ts, TLayout(**LAYOUT_KW))) == int(j_old(js, layout)) == 1
+    assert int(t_num(ts)) == int(j_num(js)) == head + 1

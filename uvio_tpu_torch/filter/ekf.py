@@ -6,7 +6,9 @@ Port of `uvio_tpu/filter/ekf.py` (the reference's
   * `propagate_covariance`  <-  EKFPropagation on the leading IMU block
   * `ekf_update`            <-  EKFUpdate with masked padded rows
   * `augment_clone`         <-  stochastic cloning into a ring slot
-  * `marginalize_clone`     <-  slot invalidation + row/col zeroing
+  * `marginalize_clone/slam`<-  slot invalidation + row/col zeroing
+  * `initialize_invertible_block` <- initialize_invertible (the new
+    block's rows written at its slot instead of a matrix resize)
 
 Functions are pure: they return new tensors and never write into their
 inputs. Slot offsets are device tensors, and writes at them are
@@ -130,8 +132,13 @@ def ekf_update(
     return new_state, {"dx": dx, "cov_ok": (diag > -tol).all()}
 
 
-def _slot_index(off: torch.Tensor, size: int) -> torch.Tensor:
-    return off + torch.arange(size, device=off.device)
+def _slot_index(off, size: int, device) -> torch.Tensor:
+    """Indices off..off+size-1; `off` is an int or a device tensor."""
+    return off + torch.arange(size, device=device)
+
+
+def _zero_rows_cols(cov: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return cov.index_fill(0, idx, 0.0).index_fill(1, idx, 0.0)
 
 
 def augment_clone(state: FilterState, layout: StateLayout, w_hat: torch.Tensor) -> FilterState:
@@ -141,9 +148,9 @@ def augment_clone(state: FilterState, layout: StateLayout, w_hat: torch.Tensor) 
     K = L.max_clones
     head = state.clone_head
     slot = torch.where(head < 0, torch.zeros_like(head), torch.remainder(head + 1, K))
-    idx = _slot_index(L.clone_off + 6 * slot, 6)
-
     cov = state.cov
+    idx = _slot_index(L.clone_off + 6 * slot, 6, cov.device)
+
     J = torch.zeros((6, L.dim), dtype=cov.dtype, device=cov.device)
     eye3 = torch.eye(3, dtype=cov.dtype, device=cov.device)
     J[0:3, L.theta_off : L.theta_off + 3] = eye3
@@ -175,11 +182,64 @@ def augment_clone(state: FilterState, layout: StateLayout, w_hat: torch.Tensor) 
 def marginalize_clone(state: FilterState, layout: StateLayout, slot: torch.Tensor) -> FilterState:
     """Drop a clone: invalidate the slot and zero its covariance rows and
     columns (`StateHelper::marginalize` under the slot-pool design)."""
-    idx = _slot_index(layout.clone_off + 6 * slot, 6)
-    cov = state.cov.index_fill(0, idx, 0.0).index_fill(1, idx, 0.0)
+    cov = _zero_rows_cols(state.cov, _slot_index(layout.clone_off + 6 * slot, 6, state.cov.device))
     onehot = torch.arange(layout.max_clones, device=slot.device) == slot
     return state.replace(
         cov=cov,
         clones_valid=state.clones_valid & ~onehot,
         clones_t=torch.where(onehot, torch.full_like(state.clones_t, -1.0), state.clones_t),
     )
+
+
+def marginalize_slam(state: FilterState, layout: StateLayout, slot: torch.Tensor) -> FilterState:
+    """Drop a landmark: invalidate its slot and zero its covariance rows
+    and columns."""
+    cov = _zero_rows_cols(state.cov, _slot_index(layout.slam_off + 3 * slot, 3, state.cov.device))
+    onehot = torch.arange(layout.max_slam, device=state.slam_valid.device) == slot
+    return state.replace(
+        cov=cov,
+        slam_valid=state.slam_valid & ~onehot,
+        slam_id=torch.where(onehot, torch.full_like(state.slam_id, -1), state.slam_id),
+    )
+
+
+def initialize_invertible_block(cov, slot_off, H_R, H_L, r_diag, res):
+    """Initialize an s-dof block at offset `slot_off` (an int or a device
+    tensor) from an invertible system (`StateHelper::initialize_invertible`,
+    `uvio_tpu/filter/ekf.py:312-340`).
+
+    H_R (s, D) Jacobian wrt the existing states, H_L (s, s) invertible
+    Jacobian wrt the new block. Returns (new_cov, dx_new) with
+    dx_new = H_L^-1 res. H_L is inverted as `uvio_tpu` does it, by QR and
+    a triangular solve: unlike `torch.linalg.solve`/`inv`, neither checks
+    its factor on the host, so the step keeps running without a sync.
+    """
+    s = H_L.shape[0]
+    M_a = cov @ H_R.T  # (D, s)
+    M = H_R @ M_a + torch.diag(r_diag)
+    Ql, Rl = torch.linalg.qr(H_L)
+    H_Linv = torch.linalg.solve_triangular(Rl, Ql.T, upper=True)
+    P_LL = H_Linv @ M @ H_Linv.T
+    cross = -M_a @ H_Linv.T  # (D, s)
+    idx = _slot_index(slot_off, s, cov.device)
+    cov = cov.index_copy(0, idx, cross.T).index_copy(1, idx, cross)
+    cov[idx[:, None], idx[None, :]] = P_LL
+    return cov, H_Linv @ res
+
+
+def set_block_covariance(cov: torch.Tensor, slot_off, block) -> torch.Tensor:
+    """Overwrite a diagonal block and zero its cross terms
+    (`StateHelper::set_initial_covariance`); `block` may be numpy."""
+    block = torch.as_tensor(block, dtype=cov.dtype, device=cov.device)
+    idx = _slot_index(slot_off, block.shape[0], cov.device)
+    cov = _zero_rows_cols(cov, idx)
+    cov[idx[:, None], idx[None, :]] = block
+    return cov
+
+
+def get_marginal_covariance(cov: torch.Tensor, blocks) -> torch.Tensor:
+    """Joint covariance of a static list of (offset, size) error-state
+    blocks, rows and columns in block order
+    (`StateHelper::get_marginal_covariance`)."""
+    idx = torch.cat([torch.arange(off, off + size, device=cov.device) for off, size in blocks])
+    return cov[idx[:, None], idx[None, :]]

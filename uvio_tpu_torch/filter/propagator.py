@@ -1,22 +1,25 @@
-"""IMU propagation over a padded IMU window (RK4 mean, ACI² F/G).
+"""IMU propagation over a padded IMU window.
 
-Port of the rk4 path of `uvio_tpu/filter/propagator.py` (the reference's
+Port of `uvio_tpu/filter/propagator.py` (the reference's
 `ov_msckf/src/state/Propagator.{h,cpp}`), batched over the intervals of
 one window:
 
   * pass 0 corrects the readings with the IMU intrinsics (identity
     unless seeded) and biases;
-  * pass 1 integrates the mean: each interval's RK4 rotation increment
-    and body-frame integrals depend only on the readings, so the
-    sequential part is one quaternion prefix product (a log-depth
-    doubling loop over the static window length) and two cumsums;
-  * pass 2 builds every interval's F/G with the closed-form ACI²
-    integrals (`compute_F_and_G_analytic`, which the reference also uses
-    for rk4);
+  * pass 1 integrates the mean: each interval's rotation increment and
+    body-frame integrals depend only on the readings (rk4, the
+    zeroth-order `discrete` integrator, or the closed-form `analytical`
+    one), so the sequential part is one quaternion prefix product (a
+    log-depth doubling loop over the static window length) and two
+    cumsums;
+  * pass 2 builds every interval's F/G: the closed-form ACI² integrals
+    (`compute_F_and_G_analytic`, which the reference also uses for rk4)
+    or the discrete closed form (`compute_F_and_G_discrete`);
   * pass 3 composes (Phi, Qd) pairwise in a log-depth tree.
 
 Padded samples carry dt=0 and contribute exactly F=I, Qd=0. Error
-order within the 15-dof IMU block: theta p v bg ba.
+order within the 15-dof IMU block: theta p v bg ba. IMU-intrinsic error
+states (`layout.imu_intr_dim > 0`) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -27,12 +30,25 @@ import math
 import numpy as np
 import torch
 
-from ..math import jr_so3, omega, quat_multiply, quat_norm, quat_to_rot, skew
+from ..math import (
+    exp_so3,
+    jr_so3,
+    log_so3,
+    omega,
+    quat_multiply,
+    quat_norm,
+    quat_to_rot,
+    rot_to_quat,
+    skew,
+)
 from ..types.layout import IMU_MODEL_KALIBR, StateLayout
 from ..types.state import FilterState
 from .ekf import augment_clone, propagate_covariance
 
+INTEGRATION_DISCRETE = "discrete"
 INTEGRATION_RK4 = "rk4"
+INTEGRATION_ANALYTICAL = "analytical"
+INTEGRATIONS = (INTEGRATION_DISCRETE, INTEGRATION_RK4, INTEGRATION_ANALYTICAL)
 
 
 def dm_matrix(vec, imu_model: int):
@@ -101,7 +117,7 @@ def _xi_sum(w_hat, a_hat, dt):
     """Closed-form ACI² integration components (`compute_Xi_sum`,
     `Propagator.cpp:588-668`) batched over intervals: (Xi_1, Xi_2,
     Jr_ktok1, Xi_3, Xi_4), with the small-w series switch as a select.
-    (`R_ktok1` feeds only the analytical mean, not the rk4 path.)"""
+    (`R_ktok1` feeds only the analytical mean, which computes it.)"""
     eye3 = torch.eye(3, dtype=w_hat.dtype, device=w_hat.device)
     w_norm = torch.linalg.vector_norm(w_hat, dim=-1)
     safe_w = torch.clamp(w_norm, min=1e-15)
@@ -205,6 +221,57 @@ def _f_and_g_analytic(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, xi, RwDw,
     return F, G
 
 
+def _f_and_g_discrete(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, RwDw, RaDa, TgM):
+    """F (n,15,15) and G (n,15,12) of the discrete closed form
+    (`compute_F_and_G_discrete`, `Propagator.cpp:830-960`), for a layout
+    without IMU-intrinsic error states."""
+    n = R_k.shape[0]
+    dtype, device = R_k.dtype, R_k.device
+    eye3 = torch.eye(3, dtype=dtype, device=device)
+    dt3 = dt[:, None, None]
+    RkT = R_k.transpose(-1, -2)
+    dR = quat_to_rot(new_q) @ RkT
+    dRJrdt = dR @ jr_so3(log_so3(dR)) * dt3
+    dp = new_p - p_k - v_k * dt[:, None] + 0.5 * gravity * (dt * dt)[:, None]
+    dv = new_v - v_k + gravity * dt[:, None]
+
+    F = torch.zeros((n, 15, 15), dtype=dtype, device=device)
+    F[:, 0:3, 0:3] = dR
+    F[:, 0:3, 9:12] = -dRJrdt @ RwDw
+    F[:, 0:3, 12:15] = dRJrdt @ RwDw @ TgM @ RaDa
+    F[:, 3:6, 0:3] = -skew(dp) @ RkT
+    F[:, 3:6, 3:6] = eye3
+    F[:, 3:6, 6:9] = eye3 * dt3
+    F[:, 3:6, 12:15] = -0.5 * dt3 * dt3 * RkT @ RaDa
+    F[:, 6:9, 0:3] = -skew(dv) @ RkT
+    F[:, 6:9, 6:9] = eye3
+    F[:, 6:9, 12:15] = -dt3 * RkT @ RaDa
+    F[:, 9:12, 9:12] = eye3
+    F[:, 12:15, 12:15] = eye3
+
+    G = torch.zeros((n, 15, 12), dtype=dtype, device=device)
+    G[:, 0:3, 0:3] = -dRJrdt @ RwDw
+    G[:, 0:3, 3:6] = dRJrdt @ RwDw @ TgM @ RaDa
+    G[:, 3:6, 3:6] = -0.5 * dt3 * dt3 * RkT @ RaDa
+    G[:, 6:9, 3:6] = -dt3 * RkT @ RaDa
+    G[:, 9:12, 6:9] = eye3 * dt3
+    G[:, 12:15, 9:12] = eye3 * dt3
+    return F, G
+
+
+def _discrete_deltas(w_hat, a_hat, dt):
+    """Zeroth-order quaternion integrator (Trawny eq. 101/103) and
+    piecewise-constant acceleration as (dq, Jv, Jp) per interval:
+    bigO(w) q == dq (x) q with dq = [sin(|w|dt/2) w/|w|, cos(|w|dt/2)]."""
+    wn = torch.linalg.vector_norm(w_hat, dim=-1, keepdim=True)
+    half = 0.5 * wn[..., 0] * dt
+    dq_l = torch.cat([torch.sin(half)[..., None] * w_hat / torch.clamp(wn, min=1e-15),
+                      torch.cos(half)[..., None]], dim=-1)
+    dq_s = torch.cat([0.5 * w_hat * dt[:, None], torch.ones_like(half)[..., None]], dim=-1)
+    dq = quat_norm(torch.where(wn > 1e-12, dq_l, dq_s))
+    return dq, a_hat * dt[:, None], 0.5 * a_hat * (dt * dt)[:, None]
+
+
 def _quat_prefix_products(dq):
     """Inclusive prefix products S_k = dq_k ⊗ ... ⊗ dq_0 by log-depth
     doubling (Hillis–Steele) over the static window length; stands in
@@ -221,6 +288,54 @@ def _quat_prefix_products(dq):
 def _shift_in(first, rest):
     """[first, rest[:-1]]: interval start values from their end values."""
     return torch.cat([first[None], rest[:-1]], dim=0)
+
+
+def _gravity(gravity_mag, dtype, device):
+    # (built without element assignment: writing a Python scalar into a
+    # CUDA tensor element copies it from the host)
+    return gravity_mag * (torch.arange(3, device=device) == 2).to(dtype)
+
+
+def _corrected_readings(state, imu_t, imu_w, imu_a, model):
+    """Pass 0, batched measurement correction with the IMU intrinsics
+    (identity unless seeded):
+      a_I = R_AtoI Da (a_m - ba);  w_I = R_WtoI Dw (w_m - bg - Tg a_I).
+    Returns (w_c, a_c, dts, RwDw, RaDa, TgM)."""
+    dtype = state.cov.dtype
+    TgM = tg_matrix(state.calib_imu_tg)
+    RwDw = quat_to_rot(state.calib_imu_gq) @ dm_matrix(state.calib_imu_dw, model)
+    RaDa = quat_to_rot(state.calib_imu_aq) @ dm_matrix(state.calib_imu_da, model)
+    dts = (imu_t[1:] - imu_t[:-1]).to(dtype)  # (n,)
+    a_c = (imu_a.to(dtype) - state.ba) @ RaDa.T
+    w_c = (imu_w.to(dtype) - state.bg - a_c @ TgM.T) @ RwDw.T
+    return w_c, a_c, dts, RwDw, RaDa, TgM
+
+
+def _integrate_mean(state, dq, Jv, Jp, dts, gravity):
+    """Pass 1, the mean from per-interval deltas (dq, Jv, Jp):
+        q_{k+1} = dq_k (x) q_k
+        v_{k+1} = v_k + R(q_k)^T Jv_k - g dt_k
+        p_{k+1} = p_k + v_k dt_k + R(q_k)^T Jp_k - g dt_k^2 / 2
+    as one quaternion prefix product and two cumsums; padded intervals
+    (dt == 0) are the identity. Returns interval ends (q_e, p_e, v_e) and
+    starts (R_s, p_s, v_s)."""
+    has = dts > 0
+    hmask = has[:, None]
+    dq = torch.where(hmask, dq, _unit_quat(dq))
+    Jv = torch.where(hmask, Jv, torch.zeros_like(Jv))
+    Jp = torch.where(hmask, Jp, torch.zeros_like(Jp))
+    dts_m = torch.where(has, dts, torch.zeros_like(dts))
+
+    q0, p0, v0 = state.q, state.p, state.v
+    q_e = quat_multiply(_quat_prefix_products(dq), q0[None])  # (n,4) interval ends
+    R_s = quat_to_rot(_shift_in(q0, q_e))  # (n,3,3) R_GtoI at interval starts
+    RsT = R_s.transpose(-1, -2)
+    dv = _bmv(RsT, Jv) - gravity[None] * dts_m[:, None]
+    v_e = v0[None] + torch.cumsum(dv, dim=0)
+    v_s = _shift_in(v0, v_e)
+    dp = v_s * dts_m[:, None] + _bmv(RsT, Jp) - 0.5 * gravity[None] * (dts_m**2)[:, None]
+    p_e = p0[None] + torch.cumsum(dp, dim=0)
+    return q_e, p_e, v_e, R_s, _shift_in(p0, p_e), v_s
 
 
 def propagate_mean_cov(
@@ -243,58 +358,30 @@ def propagate_mean_cov(
     time-offset Jacobian). `stamp_time` is stored as the state time
     (camera clock); it defaults to imu_t[-1].
     """
-    if integration != INTEGRATION_RK4:
-        raise ValueError(f"integration {integration!r} is not ported; only 'rk4' is")
+    if integration not in INTEGRATIONS:
+        raise ValueError(f"integration {integration!r} is not one of {INTEGRATIONS}")
     if layout.imu_intr_dim:
         raise NotImplementedError("IMU-intrinsic error states are not ported")
     dtype, device = state.cov.dtype, state.cov.device
-    # (built without element assignment: writing a Python scalar into a
-    # CUDA tensor element copies it from the host)
-    gravity = gravity_mag * (torch.arange(3, device=device) == 2).to(dtype)
-    imu_w = imu_w.to(dtype)
-    imu_a = imu_a.to(dtype)
-
-    # IMU intrinsic correction matrices (identity unless seeded):
-    #   a_I = R_AtoI Da (a_m - ba);  w_I = R_WtoI Dw (w_m - bg - Tg a_I)
-    model = layout.imu_model
-    TgM = tg_matrix(state.calib_imu_tg)
-    RwDw = quat_to_rot(state.calib_imu_gq) @ dm_matrix(state.calib_imu_dw, model)
-    RaDa = quat_to_rot(state.calib_imu_aq) @ dm_matrix(state.calib_imu_da, model)
-
-    # -- pass 0: batched measurement correction ------------------------
-    dts = (imu_t[1:] - imu_t[:-1]).to(dtype)  # (n,)
+    gravity = _gravity(gravity_mag, dtype, device)
+    w_c, a_c, dts, RwDw, RaDa, TgM = _corrected_readings(state, imu_t, imu_w, imu_a, layout.imu_model)
     has = dts > 0
     safe_dt = torch.where(has, dts, torch.ones_like(dts))
-    a_c = (imu_a - state.ba) @ RaDa.T
-    w_c = (imu_w - state.bg - a_c @ TgM.T) @ RwDw.T
     w1, w2 = w_c[:-1], w_c[1:]
     a1, a2 = a_c[:-1], a_c[1:]
     w_hat = 0.5 * (w1 + w2)
     a_hat = 0.5 * (a1 + a2)
-    xi = _xi_sum(w_hat, a_hat, safe_dt)
+    xi = _xi_sum(w_hat, a_hat, safe_dt) if integration != INTEGRATION_DISCRETE else None
 
     # -- pass 1: mean via per-interval deltas + prefix composition -----
-    #     q_{k+1} = dq_k (x) q_k
-    #     v_{k+1} = v_k + R(q_k)^T Jv_k - g dt_k
-    #     p_{k+1} = p_k + v_k dt_k + R(q_k)^T Jp_k - g dt_k^2 / 2
-    dq, Jv, Jp = _rk4_deltas(w1, a1, w2, a2, dts)
-    hmask = has[:, None]
-    dq = torch.where(hmask, dq, _unit_quat(dq))
-    Jv = torch.where(hmask, Jv, torch.zeros_like(Jv))
-    Jp = torch.where(hmask, Jp, torch.zeros_like(Jp))
-    dts_m = torch.where(has, dts, torch.zeros_like(dts))
-
-    q0, p0, v0 = state.q, state.p, state.v
-    q_e = quat_multiply(_quat_prefix_products(dq), q0[None])  # (n,4) interval ends
-    q_s = _shift_in(q0, q_e)
-    R_s = quat_to_rot(q_s)  # (n,3,3) R_GtoI at interval starts
-    RsT = R_s.transpose(-1, -2)
-    dv = _bmv(RsT, Jv) - gravity[None] * dts_m[:, None]
-    v_e = v0[None] + torch.cumsum(dv, dim=0)
-    v_s = _shift_in(v0, v_e)
-    dp = v_s * dts_m[:, None] + _bmv(RsT, Jp) - 0.5 * gravity[None] * (dts_m**2)[:, None]
-    p_e = p0[None] + torch.cumsum(dp, dim=0)
-    p_s = _shift_in(p0, p_e)
+    if integration == INTEGRATION_ANALYTICAL:
+        R_ktok1 = exp_so3(-w_hat * safe_dt[:, None])
+        dq, Jv, Jp = rot_to_quat(R_ktok1), _bmv(xi[0], a_hat), _bmv(xi[1], a_hat)
+    elif integration == INTEGRATION_DISCRETE:
+        dq, Jv, Jp = _discrete_deltas(w_hat, a_hat, safe_dt)
+    else:
+        dq, Jv, Jp = _rk4_deltas(w1, a1, w2, a2, dts)
+    q_e, p_e, v_e, R_s, p_s, v_s = _integrate_mean(state, dq, Jv, Jp, dts, gravity)
     q, p, v = q_e[-1], p_e[-1], v_e[-1]
 
     # FEJ: interval 0 linearizes at the stored first estimate; every later
@@ -304,7 +391,12 @@ def propagate_mean_cov(
     v_s = torch.cat([state.v_fej[None], v_s[1:]], dim=0)
 
     # -- pass 2: batched F/G construction -------------------------------
-    F, G = _f_and_g_analytic(R_s, p_s, v_s, q_e, p_e, v_e, safe_dt, gravity, xi, RwDw, RaDa, TgM)
+    # rk4 and analytical both take the ACI² F/G, as the reference does
+    # (`Propagator.cpp:454-459`)
+    if integration == INTEGRATION_DISCRETE:
+        F, G = _f_and_g_discrete(R_s, p_s, v_s, q_e, p_e, v_e, safe_dt, gravity, RwDw, RaDa, TgM)
+    else:
+        F, G = _f_and_g_analytic(R_s, p_s, v_s, q_e, p_e, v_e, safe_dt, gravity, xi, RwDw, RaDa, TgM)
     eye15 = torch.eye(15, dtype=dtype, device=device)
     F = torch.where(has[:, None, None], F, eye15)
     G = torch.where(has[:, None, None], G, torch.zeros_like(G))
@@ -341,6 +433,18 @@ def propagate_mean_cov(
         time=imu_t[-1] if stamp_time is None else stamp_time,
     )
     return new_state, w_c[-1]
+
+
+def propagate_mean_only(state, imu_t, imu_w, imu_a, gravity_mag: float, imu_model: int = IMU_MODEL_KALIBR):
+    """Mean-only RK4 propagation (no covariance): the
+    `fast_state_propagate` path for IMU-rate odometry output
+    (`Propagator.cpp:140-267`), passes 0 and 1 of `propagate_mean_cov`.
+    Returns (q, p, v) at imu_t[-1]."""
+    gravity = _gravity(gravity_mag, state.cov.dtype, state.cov.device)
+    w_c, a_c, dts, _, _, _ = _corrected_readings(state, imu_t, imu_w, imu_a, imu_model)
+    dq, Jv, Jp = _rk4_deltas(w_c[:-1], a_c[:-1], w_c[1:], a_c[1:], dts)
+    q_e, p_e, v_e, _, _, _ = _integrate_mean(state, dq, Jv, Jp, dts, gravity)
+    return q_e[-1], p_e[-1], v_e[-1]
 
 
 def propagate_and_clone(

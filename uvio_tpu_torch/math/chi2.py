@@ -32,4 +32,7 @@ def chi2_95(dof: torch.Tensor, max_dof: int = 0) -> torch.Tensor:
     an out-of-range dof must not gate at threshold 0.
     """
     hi = max_dof if max_dof and max_dof < MAX_DOF else MAX_DOF
-    return _device_table(dof.device)[torch.clamp(dof, 1, hi).long()]
+    # index_select, not `table[dof]`: a 0-d index tensor would be read on
+    # the host
+    idx = torch.clamp(dof, 1, hi).long()
+    return _device_table(dof.device).index_select(0, idx.reshape(-1)).reshape(idx.shape)

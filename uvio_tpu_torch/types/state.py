@@ -133,6 +133,31 @@ def init_state(layout: StateLayout, dtype=torch.float64, device=None) -> FilterS
     return state_from_numpy(arrays, device, dtype)
 
 
+def num_clones(state: FilterState) -> torch.Tensor:
+    return state.clones_valid.sum()
+
+
+def oldest_clone_slot(state: FilterState, layout: StateLayout) -> torch.Tensor:
+    """Slot of the oldest valid clone (ring order: head+1 when full)."""
+    inf = torch.full_like(state.clones_t, float("inf"))
+    return torch.argmin(torch.where(state.clones_valid, state.clones_t, inf))
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along dim 0 for an index tensor of any shape (a slot), without
+    the host read that indexing with a 0-d tensor does. Indices must be
+    valid: unlike `lax.dynamic_slice`, nothing clamps them."""
+    return x.index_select(0, idx.reshape(-1)).reshape(idx.shape + x.shape[1:])
+
+
+def where_state(pred: torch.Tensor, a: FilterState, b: FilterState) -> FilterState:
+    """Field-wise `torch.where(pred, a, b)`: the device-side select that
+    stands in for `lax.cond` on a state (both branches were computed)."""
+    return FilterState(
+        **{name: torch.where(pred, getattr(a, name), getattr(b, name)) for name in FIELDS}
+    )
+
+
 def state_from_numpy(arrays, device=None, dtype=torch.float64) -> FilterState:
     """Build a state from numpy arrays keyed by field name (e.g. the
     fields of a `uvio_tpu` FilterState passed through `np.asarray`)."""

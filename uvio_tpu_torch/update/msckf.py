@@ -152,13 +152,14 @@ def nullspace_project(Hx, H_f, res):
 
 def chi2_gate(Hx_proj, res_proj, cov, nobs_rows, sigma_pix, chi2_mult=1.0):
     """Per-feature Mahalanobis gating (UpdaterMSCKF.cpp:221-243).
-    nobs_rows (F,) = number of valid rows (2n); dof = 2n - 3."""
+    nobs_rows (F,) = number of valid rows (2n); dof = 2n - 3.
+    Returns (keep (F,), chi2 statistic (F,))."""
     eye = torch.eye(Hx_proj.shape[1], dtype=Hx_proj.dtype, device=Hx_proj.device)
     S = Hx_proj @ cov @ Hx_proj.transpose(-1, -2) + sigma_pix**2 * eye
     sol = torch.cholesky_solve(res_proj[..., None], cholesky_or_nan(S))[..., 0]
     gamma = (res_proj * sol).sum(-1)
     dof = torch.clamp(nobs_rows - 3, min=1)
-    return gamma < chi2_mult * chi2_95(dof, max_dof=Hx_proj.shape[1])
+    return gamma < chi2_mult * chi2_95(dof, max_dof=Hx_proj.shape[1]), gamma
 
 
 def compress_and_update(state, layout, Hx_proj, res_proj, keep, sigma_pix):
@@ -207,7 +208,8 @@ def msckf_update(state, layout, cam_model, obs_uv, obs_mask, sigma_pix=1.0, chi2
 
     Hx_p, H_f_p, res_p, rm_p = _pack_rows(Hx, H_f, res, row_mask)
     Hx_proj, res_proj = nullspace_project(Hx_p, H_f_p, res_p)
-    keep = chi2_gate(Hx_proj, res_proj, state.cov, rm_p.sum(1), sigma_pix, chi2_mult) & ok
+    keep, chi2 = chi2_gate(Hx_proj, res_proj, state.cov, rm_p.sum(1), sigma_pix, chi2_mult)
+    keep = keep & ok
     new_state, diag = compress_and_update(state, layout, Hx_proj, res_proj, keep, sigma_pix)
-    info = {"tri_ok": tri_ok, "kept": keep, "num_used": keep.sum(), "cov_ok": diag["cov_ok"]}
+    info = {"tri_ok": tri_ok, "kept": keep, "num_used": keep.sum(), "cov_ok": diag["cov_ok"], "chi2": chi2}
     return new_state, info
