@@ -7,19 +7,38 @@ its UWB + SLAM filter step on one NVIDIA GPU: the quickest proof that
 
 Phases, each printing one JSON line:
   1. card   — `nvidia-smi` name and power limit; full-float32 matmuls set;
-  2. build  — nvcc builds csrc/*.cu (sm_90a) from the checkout;
-  3. fast9  — kernel vs plain PyTorch on a rendered 752x480 frame and a
-              random one (max abs diff <= 1e-4), both timed;
-  4. lk     — kernel vs plain on the 4 pyramid levels of two rendered
+  2. build  — nvcc builds csrc/*.cu (sm_90a) from the checkout, one process
+              per source; the `-Xptxas -v` report goes to stderr;
+  3. yardsticks — an empty kernel on each kernel's grid and `out.copy_(img)`
+              of the 752x480 float32 frame, by the graph clock below;
+  4. fast9  — kernel vs plain PyTorch on a rendered 752x480 frame, a random
+              one and a random 65x257 one (a width that takes the scalar
+              path); max abs diff <= 1e-4, 0.0 in practice; its time also
+              on a frame of zeros and a random one (no ring pass, or one
+              for nearly every pixel);
+  5. lk_level — kernel vs plain on the 4 pyramid levels of two rendered
               frames, 150 features, both iteration settings (ok masks
               differ in at most 1 of 150, <= 1e-3 px where both keep a
-              track), both timed;
-  5. slice  — the simulator renders 60 frames (752x480, seed 9, 200 Hz
+              track);
+  6. lk_track — the one-launch pyramid on the same frames: bitwise equal to
+              the chain of four `lk_level` launches; against the plain
+              chain, at most 2 of 150 masks and <= 1e-3 px on jointly kept
+              tracks that float32 determines; the same bitwise on a pair
+              with a flow of (96, -80) px, where windows leave the staged
+              slab; and `lk_level` from guesses 10 px off on a smooth
+              scene, every one of which stages its slab again.
+     Kernel times are by two clocks: `ms` replays a CUDA graph of 100
+     launches of the C entry point (no Python between launches: device
+     time), `wrapper_ms` is a Python loop over the wrapper between two
+     events (the host's pace when the device drains faster). L2 is warm in
+     both, as on the main path, which finds the pyramid just written.
+  7. slice  — the simulator renders 60 frames (752x480, seed 9, 200 Hz
               IMU, 10 Hz camera); the fused step runs each on cuda:0 with
-              a float32 state; gates of tests/test_fused_vio.py; 1 fast9
-              and 4 lk_level launches per step; median per-frame time over
-              3 warm repetitions.
-  6. full_step — `pipeline.full_filter_step` replays the 100 frames of the
+              a float32 state; gates of tests/test_fused_vio.py; exactly 1
+              fast9 and 1 lk_track launch per step; median per-frame time
+              over 3 warm repetitions; the two kernels' device time by name
+              under `torch.profiler` over 5 steps.
+  8. full_step — `pipeline.full_filter_step` replays the 100 frames of the
               committed fixture (`bench.py`'s scenario: seed 7, 25 SLAM
               slots, 4 UWB anchors) on cuda:0. float64: every info equal
               to the JAX float64 replay's, position within 1e-6 m and
@@ -31,7 +50,9 @@ Phases, each printing one JSON line:
               3 warm repetitions; host syncs over one whole warm replay,
               with how many frames took each branch of the plan. It runs no hand
               kernel (its inputs are features, not images).
-Then the kernel table, the `nvidia-smi` line, and the result line.
+Then the kernel table (with each kernel's bound: the larger of its bytes
+over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted from
+this run's inputs), the `nvidia-smi` line, and the result line.
 Needs no network; any failed check raises.
 """
 
@@ -60,6 +81,361 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(launch, k=100, replays=20):
+    """Device time of one launch() in ms: k launches captured in one CUDA
+    graph, replayed `replays` times to warm the clocks and then `replays`
+    times between two events. launch() must enqueue on the current stream
+    and allocate nothing."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(k):
+            launch()
+    for _ in range(replays):
+        g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (k * replays)
+
+
+def sm_clock_under_load(launch, seconds=1.0):
+    """The SM clock `nvidia-smi` reads while a graph of launch() replays
+    for about `seconds`: what the graph clock's times were taken at."""
+    import torch
+
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(100):
+            launch()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                           stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while smi.poll() is None or time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            g.replay()
+        torch.cuda.synchronize()
+    return smi.communicate()[0].strip()
+
+
+def _stream():
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _checked(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12
+HALF, ITERS, COARSE_ITERS, LEVELS = 7, 10, 6, 4  # the main path's LK settings
+
+
+def bound_ms(n_bytes, n_ops):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def kernel_inputs(dev, imgs):
+    """The kernels' inputs at the main path's shapes: the first two
+    rendered frames equalized, their 4-level pyramids, 150 seeded feature
+    positions at least 24 px inside, all valid."""
+    import numpy as np
+    import torch
+
+    from uvio_tpu_torch.frontend.klt import build_pyramid, hist_equalize
+
+    rendered = hist_equalize(torch.as_tensor(imgs[0], device=dev))
+    pyr0 = build_pyramid(rendered, LEVELS)
+    pyr1 = build_pyramid(hist_equalize(torch.as_tensor(imgs[1], device=dev)), LEVELS)
+    rng = np.random.default_rng(0)
+    uv0 = torch.as_tensor(rng.uniform([24, 24], [752 - 24, 480 - 24], (150, 2)),
+                          dtype=torch.float32, device=dev)
+    valid = torch.ones(150, dtype=torch.bool, device=dev)
+    return {"rendered": rendered, "pyr0": pyr0, "pyr1": pyr1, "uv0": uv0, "valid": valid}
+
+
+def time_kernels(lib, K, inp):
+    """Both clocks for every kernel `lib` (a bound kernel library) and `K`
+    (its package's `frontend.kernels`) have, at the main path's shapes and
+    settings: {"fast9": {"ms", "wrapper_ms"}, "lk_level": {..., "levels_ms"},
+    "lk_track": {...}}. `lk_level` sums the four levels."""
+    import torch
+
+    img, pyr0, pyr1, uv0, valid = (inp[k] for k in ("rendered", "pyr0", "pyr1", "uv0", "valid"))
+    H, W = img.shape
+    N = uv0.shape[0]
+    out = {}
+    score = torch.empty_like(img)
+    out["fast9"] = {
+        "ms": graph_ms(lambda: _checked(lib.uvio_fast9(
+            img.data_ptr(), score.data_ptr(), H, W, 20.0, _stream()), "uvio_fast9")),
+        "wrapper_ms": cuda_ms(lambda: K.fast_score(img, 20.0), 200),
+    }
+    uv_out, ok_out = torch.empty_like(uv0), torch.empty_like(valid)
+    levels_ms, wrapper_ms = [], 0.0
+    for lev in range(LEVELS):
+        uv_l = (uv0 / 2.0**lev).contiguous()
+        iters, min_eig = (ITERS, 25.0) if lev == 0 else (COARSE_ITERS, 0.0)
+        h, w = pyr0[lev].shape
+        levels_ms.append(graph_ms(lambda: _checked(lib.uvio_lk_level(
+            pyr0[lev].data_ptr(), pyr1[lev].data_ptr(), h, w, uv_l.data_ptr(), uv_l.data_ptr(),
+            valid.data_ptr(), uv_out.data_ptr(), ok_out.data_ptr(), N, HALF, iters, min_eig,
+            _stream()), "uvio_lk_level")))
+        wrapper_ms += cuda_ms(lambda: K.lk_level(pyr0[lev], pyr1[lev], uv_l, uv_l, valid, HALF,
+                                                 iters, min_eig), 200)
+    out["lk_level"] = {"ms": sum(levels_ms), "levels_ms": levels_ms, "wrapper_ms": wrapper_ms}
+    if hasattr(lib, "uvio_lk_track"):
+        args = K.lk_track_args(pyr0, pyr1)
+        out["lk_track"] = {
+            "ms": graph_ms(lambda: _checked(lib.uvio_lk_track(
+                *args, LEVELS, uv0.data_ptr(), valid.data_ptr(), uv_out.data_ptr(),
+                ok_out.data_ptr(), N, HALF, ITERS, COARSE_ITERS, K.LK_MIN_EIG, _stream()),
+                "uvio_lk_track")),
+            "wrapper_ms": cuda_ms(lambda: K.lk_track(pyr0, pyr1, uv0, valid, HALF, ITERS,
+                                                     COARSE_ITERS), 200),
+        }
+    return out
+
+
+def time_yardsticks(lib, img, grids):
+    """What a launch and FAST-9's bytes cost at least, by the graph clock:
+    an empty kernel on each named grid (gx, gy, threads) and `out.copy_(img)`."""
+    import torch
+
+    out = {f"empty_{name}_ms": graph_ms(lambda: _checked(lib.uvio_empty_launch(
+        *grid, _stream()), "uvio_empty_launch")) for name, grid in grids.items()}
+    dst = torch.empty_like(img)
+    out["copy_ms"] = graph_ms(lambda: dst.copy_(img))
+    out["sm_clock_under_replay"] = sm_clock_under_load(lambda: dst.copy_(img))
+    return out
+
+
+def profiled_kernel_ms(run, names=("fast9_kernel", "lk_kernel", "lk_level_kernel")):
+    """Mean device time per launch, by kernel name, of the hand kernels
+    that run() launches, from `torch.profiler`: {name: {"ms", "count"}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name in names:
+            if f"::{name}" in e.key and e.device_time_total > 0:
+                out[name] = {"ms": e.device_time_total / e.count / 1e3, "count": e.count}
+    return out
+
+
+def fast9_bound(K, img, thresh=20.0):
+    """FAST-9's bound on this image: the image read and the score written
+    once; 12 operations a pixel for the pretest (4 differences, 8
+    compares) and 96 more (16 x difference, 2 compares, abs, subtract,
+    add) for each interior pixel that passes it."""
+    H, W = img.shape
+    survivors = int(K.fast_pretest(img, thresh)[3:-3, 3:-3].sum().item())
+    return bound_ms(2 * H * W * 4, 12 * H * W + 96 * survivors) + (survivors,)
+
+
+def lk_bounds(K, inp):
+    """The bounds of `lk_track` and of the four `lk_level` launches on
+    these inputs. Bytes: the distinct pixels the features touch, 4 bytes
+    each: per level, of `pyr_prev` the 16x16 template blocks and of
+    `pyr_next` the 16x16 window blocks of every iteration (recorded from
+    the plain version), each pixel counted once however many features or
+    iterations read it; plus positions, flags and results (17 bytes a
+    feature: once for the fused launch, 25 per level for the chain, which
+    also reads a guess). Operations: 19 per template pixel (blend 9,
+    gradients 4, structure tensor 6) and 14 per window pixel and
+    iteration (blend 9, residual 1, two multiply-adds)."""
+    import torch
+
+    P = 2 * HALF + 1
+    N = inp["uv0"].shape[0]
+    per_level = []
+
+    def touched(shape, blocks):
+        """Distinct pixels under the (P+1)^2 blocks starting at (x, y)."""
+        mask = torch.zeros(shape, dtype=torch.bool, device=inp["uv0"].device)
+        ar = torch.arange(P + 1, device=mask.device)
+        for x, y in blocks:
+            mask[(y[:, None] + ar)[:, :, None], (x[:, None] + ar)[:, None, :]] = True
+        return int(mask.sum().item())
+
+    def level(img_prev, img_next, uv_l, *rest):
+        wins = []
+        res = K.lk_level_ref(img_prev, img_next, uv_l, *rest, windows=wins)
+        tx, ty = K._window(uv_l, HALF, *img_prev.shape)[:2]
+        pixels = touched(img_prev.shape, [(tx, ty)]) + touched(img_next.shape, wins)
+        per_level.append((4 * pixels, len(wins)))
+        return res
+
+    K.lk_track_ref(inp["pyr0"], inp["pyr1"], inp["uv0"], inp["valid"], HALF, ITERS, COARSE_ITERS,
+                   level_fn=level)
+    image_bytes = sum(b for b, _ in per_level)
+    ops = sum(N * P * P * (19 + 14 * n_it) for _, n_it in per_level)
+    return {"lk_track": bound_ms(image_bytes + 17 * N, ops),
+            "lk_level": bound_ms(image_bytes + 25 * N * LEVELS, ops),
+            "image_bytes": image_bytes, "operations": ops,
+            "image_bytes_coarse_to_fine": [b for b, _ in per_level]}
+
+
+def check_fast9(K, dev, rendered):
+    """FAST-9 against its plain version on the rendered frame, a random
+    one and a random 65x257 one (scalar path); returns the max abs diff."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rnd = torch.rand((480, 752), generator=gen, device=dev) * 255.0
+    odd = torch.rand((65, 257), generator=gen, device=dev) * 255.0
+    err = 0.0
+    for img in (rendered, rnd, odd):
+        a = K.fast_score(img, 20.0)
+        b = K.fast_score_ref(img, 20.0)
+        err = max(err, (a - b).abs().max().item())
+        if (a > 0).sum().item() == 0:
+            raise RuntimeError("fast9 found no corners")
+    if not err <= 1e-4:
+        raise RuntimeError(f"fast9 disagrees with its plain version: {err}")
+    return err
+
+
+def check_lk_level(K, inp):
+    """`lk_level` against its plain version on all 4 levels under both
+    iteration settings; logs each and returns the max position error."""
+    pyr0, pyr1, uv0, valid = (inp[k] for k in ("pyr0", "pyr1", "uv0", "valid"))
+    lk_err = 0.0
+    for lev in range(LEVELS):
+        uv_l = (uv0 / 2.0**lev).contiguous()
+        for iters, min_eig in ((ITERS, 25.0), (COARSE_ITERS, 0.0)):
+            args = (pyr0[lev], pyr1[lev], uv_l, uv_l, valid, HALF, iters, min_eig)
+            uv_k, ok_k = K.lk_level(*args)
+            uv_r, ok_r = K.lk_level_ref(*args)
+            diff = (ok_k != ok_r).nonzero().flatten().tolist()
+            both = ok_k & ok_r
+            e = (uv_k[both] - uv_r[both]).abs().max().item() if both.any().item() else 0.0
+            rec = {"phase": "lk_level", "level": lev, "shape": list(pyr0[lev].shape),
+                   "iters": iters, "min_eig": min_eig, "ok": int(ok_k.sum().item()),
+                   "ok_plain": int(ok_r.sum().item()), "ok_differs": diff, "max_abs_err": e}
+            if diff:
+                rec["differing"] = [{"i": i, "uv": uv_l[i].tolist(), "kernel": uv_k[i].tolist(),
+                                     "plain": uv_r[i].tolist()} for i in diff]
+            log(rec)
+            if len(diff) > 1 or not e <= 1e-3:
+                raise RuntimeError("lk_level disagrees with its plain version")
+            lk_err = max(lk_err, e)
+    return lk_err
+
+
+def smooth_scene(dev):
+    """A 200x260 Gaussian-smoothed noise image, a copy moved by (2, -1)
+    px, 40 feature positions, and guesses 10 px off on the first 20: on
+    ground this smooth LK converges from there, across the slab's edge."""
+    import numpy as np
+    import torch
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(1)
+    img = gaussian_filter(rng.uniform(0, 255, (200, 260)), 8.0)
+    img = ((img - img.min()) / (img.max() - img.min()) * 255).astype(np.float32)
+    uv = np.stack([rng.uniform(50, 210, 40), rng.uniform(50, 150, 40)], 1).astype(np.float32)
+    guess = uv.copy()
+    guess[:20] += np.array([10.0, -10.0], np.float32)
+    on = lambda a: torch.as_tensor(a, device=dev)
+    return on(img), on(np.roll(img, (-1, 2), axis=(0, 1))), on(uv), on(guess)
+
+
+def check_lk_track(K, dev, inp):
+    """The one-launch pyramid: bitwise against the chain of `lk_level`
+    launches (also on a far flow that leaves the slab), against the plain
+    chain, and `lk_level` from far guesses. Returns the phase's record."""
+    import torch
+
+    from uvio_tpu_torch.frontend.klt import build_pyramid
+
+    pyr0, pyr1, uv0, valid = (inp[k] for k in ("pyr0", "pyr1", "uv0", "valid"))
+    cfg = (HALF, ITERS, COARSE_ITERS)
+
+    def fused_vs_chain(p0, p1, what):
+        uv_f, ok_f = K.lk_track(p0, p1, uv0, valid, *cfg)
+        uv_c, ok_c = K.lk_track_ref(p0, p1, uv0, valid, *cfg, level_fn=K.lk_level)
+        if not (torch.equal(uv_f, uv_c) and torch.equal(ok_f, ok_c)):
+            log({"phase": "lk_track", "case": what, "ok_differs": int((ok_f != ok_c).sum().item()),
+                 "uv_differs": int((uv_f != uv_c).any(1).sum().item())})
+            raise RuntimeError(f"lk_track differs from the chained lk_level launches ({what})")
+        return uv_f, ok_f
+
+    uv_f, ok_f = fused_vs_chain(pyr0, pyr1, "rendered frames 0 and 1")
+    uv_r, ok_r = K.lk_track_ref(pyr0, pyr1, uv0, valid, *cfg)
+    uv_64, _ = K.lk_track_ref([p.double() for p in pyr0], [p.double() for p in pyr1], uv0.double(),
+                              valid, *cfg)
+    # positions are compared where float32 determines the answer: the plain
+    # chain lies within 2.5e-4 px of its float64 evaluation
+    stable = (uv_r.double() - uv_64).abs().amax(1) < 2.5e-4
+    both = ok_f & ok_r
+    rec = {"phase": "lk_track", "bitwise_equal_to_chained_levels": True,
+           "ok": int(ok_f.sum().item()), "ok_plain": int(ok_r.sum().item()),
+           "ok_differs": int((ok_f != ok_r).sum().item()), "jointly_kept": int(both.sum().item()),
+           "max_abs_err_jointly_kept": (uv_f[both] - uv_r[both]).abs().max().item(),
+           "float32_determined": int((both & stable).sum().item()),
+           "max_abs_err": (uv_f[both & stable] - uv_r[both & stable]).abs().max().item()}
+    if (rec["ok_differs"] > 2 or not rec["max_abs_err"] <= 1e-3
+            or rec["float32_determined"] < 0.85 * rec["jointly_kept"]):
+        log(rec)
+        raise RuntimeError("lk_track disagrees with its plain version")
+
+    # a flow of (96, -80) px: windows leave the staged slab at every level
+    far = build_pyramid(torch.roll(inp["rendered"], (-80, 96), (0, 1)), LEVELS)
+    restaged = []
+
+    def slab_level(*args):
+        uv_l, ok_l, n = K.lk_level_slab_ref(*args)
+        restaged.append(int((n >= 2).sum().item()))
+        return uv_l, ok_l
+
+    K.lk_track_ref(pyr0, far, uv0, valid, *cfg, level_fn=slab_level)
+    fused_vs_chain(pyr0, far, "flow of (96, -80) px")
+    rec["far_flow"] = {"bitwise_equal_to_chained_levels": True,
+                       "features_restaged_per_level_coarse_to_fine": restaged}
+    if sum(restaged) < 10:
+        log(rec)
+        raise RuntimeError("the far-flow case staged no slab again")
+
+    # guesses 10 px off on smooth ground: the plain version follows them
+    # across the slab's edge, and the kernel must stage again to agree
+    img, moved, uv_s, guess = smooth_scene(dev)
+    args = (img, moved, uv_s, guess, torch.ones(40, dtype=torch.bool, device=dev), HALF, 20, 25.0)
+    uv_k, ok_k = K.lk_level(*args)
+    uv_p, ok_p, n_staged = K.lk_level_slab_ref(*args)
+    flow = torch.tensor([2.0, -1.0], device=dev)
+    settled = ok_k & ok_p & ((uv_p - uv_s - flow).abs().amax(1) < 0.05)
+    far_rec = {"restaged_of_20_moved": int((n_staged[:20] >= 2).sum().item()),
+               "restaged_of_20_in_place": int((n_staged[20:] >= 2).sum().item()),
+               "ok_differs": int((ok_k != ok_p).sum().item()),
+               "settled_on_the_flow": int(settled.sum().item()),
+               "settled_and_restaged": int((settled[:20] & (n_staged[:20] >= 2)).sum().item()),
+               "max_abs_err_settled": (uv_k[settled] - uv_p[settled]).abs().max().item()}
+    rec["guess_10px_off"] = far_rec
+    if (far_rec["settled_and_restaged"] < 10 or far_rec["ok_differs"] > 1
+            or not far_rec["max_abs_err_settled"] <= 1e-3):
+        log(rec)
+        raise RuntimeError("lk_level with far guesses disagrees with its plain version")
+    return rec
 
 
 def render(n_frames):
@@ -267,7 +643,6 @@ def main():
 
     from uvio_tpu_torch import _build
     from uvio_tpu_torch.frontend import kernels as K
-    from uvio_tpu_torch.frontend.klt import build_pyramid, hist_equalize
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(
@@ -284,72 +659,66 @@ def main():
     # ---- build -------------------------------------------------------
     t0 = time.perf_counter()
     report = _build.build()
-    _build.load()
+    lib = _build.load()
     log({"phase": "build", "seconds": time.perf_counter() - t0, "lib": _build.LIB_PATH})
     print(report, file=sys.stderr)
 
     sim, imgs, stamps, imu = render(60)
     log({"phase": "render", "frames": len(imgs), "resolution": "752x480"})
+    inp = kernel_inputs(dev, imgs)
+    rendered, pyr0, pyr1, uv0, valid = (inp[k] for k in ("rendered", "pyr0", "pyr1", "uv0", "valid"))
+    N = uv0.shape[0]
+
+    # ---- yardsticks and both clocks ----------------------------------
+    yard = time_yardsticks(lib, rendered, {"fast9_grid": (6, 60, 256), "lk_grid": (N, 1, 128)})
+    log({"phase": "yardsticks", **yard, "l2": "warm", "card": card})
+    clocks = time_kernels(lib, K, inp)
     kernels = {}
 
     # ---- fast9 vs plain ------------------------------------------------
-    rendered = hist_equalize(torch.as_tensor(imgs[0], device=dev))
-    rnd = torch.rand((480, 752), generator=torch.Generator(device=dev).manual_seed(1),
-                     device=dev) * 255.0
-    err = 0.0
-    for img in (rendered, rnd):
-        a = K.fast_score(img, 20.0)
-        b = K.fast_score_ref(img, 20.0)
-        torch.cuda.synchronize()
-        err = max(err, (a - b).abs().max().item())
-        if (a > 0).sum().item() == 0:
-            raise RuntimeError("fast9 found no corners")
-    if not err <= 1e-4:
-        raise RuntimeError(f"fast9 disagrees with its plain version: {err}")
-    ms = cuda_ms(lambda: K.fast_score(rendered, 20.0), 200)
-    plain_ms = cuda_ms(lambda: K.fast_score_ref(rendered, 20.0), 20)
-    kernels["fast9"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    log({"phase": "fast9", "shape": [480, 752], "max_abs_err": err, "ms": ms,
-         "plain_ms": plain_ms, "card": card})
+    err = check_fast9(K, dev, rendered)
+    b_ms, b_by, survivors = fast9_bound(K, rendered)
+    kernels["fast9"] = dict(max_abs_err=err, **clocks["fast9"],
+                            plain_ms=cuda_ms(lambda: K.fast_score_ref(rendered, 20.0), 20),
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # the ring pass is what varies: no survivor of the pretest, or nearly all
+    score = torch.empty_like(rendered)
+    by_content = {}
+    for name, im in (("zeros", torch.zeros_like(rendered)),
+                     ("random", torch.rand_like(rendered) * 255.0)):
+        by_content[name] = {
+            "pretest_survivors": int(K.fast_pretest(im, 20.0)[3:-3, 3:-3].sum().item()),
+            "ms": graph_ms(lambda: _checked(lib.uvio_fast9(
+                im.data_ptr(), score.data_ptr(), *im.shape, 20.0, _stream()), "uvio_fast9"))}
+    log({"phase": "fast9", "shapes": [[480, 752], [480, 752], [65, 257]],
+         "pretest_survivors": survivors, **kernels["fast9"], "ms_by_content": by_content,
+         "card": card})
 
     # ---- lk_level vs plain ---------------------------------------------
-    pyr0 = build_pyramid(rendered, 4)
-    pyr1 = build_pyramid(hist_equalize(torch.as_tensor(imgs[1], device=dev)), 4)
-    rng = np.random.default_rng(0)
-    uv0 = torch.as_tensor(rng.uniform([24, 24], [752 - 24, 480 - 24], (150, 2)),
-                          dtype=torch.float32, device=dev)
-    valid = torch.ones(150, dtype=torch.bool, device=dev)
-    lk_err, lk_ms, lk_plain_ms = 0.0, 0.0, 0.0
-    for lev in range(4):
+    lk_err = check_lk_level(K, inp)
+    lk_plain_ms = 0.0
+    for lev in range(LEVELS):
         uv_l = (uv0 / 2.0**lev).contiguous()
-        for iters, min_eig in ((10, 25.0), (6, 0.0)):
-            args = (pyr0[lev], pyr1[lev], uv_l, uv_l, valid, 7, iters, min_eig)
-            uv_k, ok_k = K.lk_level(*args)
-            uv_r, ok_r = K.lk_level_ref(*args)
-            torch.cuda.synchronize()
-            diff = torch.nonzero(ok_k != ok_r).flatten().tolist()
-            both = ok_k & ok_r
-            e = (uv_k[both] - uv_r[both]).abs().max().item() if both.any().item() else 0.0
-            rec = {"phase": "lk_level", "level": lev, "shape": list(pyr0[lev].shape),
-                   "iters": iters, "min_eig": min_eig, "ok": int(ok_k.sum().item()),
-                   "ok_plain": int(ok_r.sum().item()), "ok_differs": diff, "max_abs_err": e}
-            if diff:
-                rec["differing"] = [{"i": i, "uv": uv_l[i].tolist(), "kernel": uv_k[i].tolist(),
-                                     "plain": uv_r[i].tolist()} for i in diff]
-            if len(diff) > 1 or not e <= 1e-3:
-                log(rec)
-                raise RuntimeError("lk_level disagrees with its plain version")
-            lk_err = max(lk_err, e)
-            # the main path's settings: 10 iterations on level 0, 6 above
-            if (iters == 10) == (lev == 0):
-                rec["ms"] = cuda_ms(lambda: K.lk_level(*args), 200)
-                rec["plain_ms"] = cuda_ms(lambda: K.lk_level_ref(*args), 10)
-                lk_ms += rec["ms"]
-                lk_plain_ms += rec["plain_ms"]
-            log(rec)
-    kernels["lk_level"] = dict(max_abs_err=lk_err, ms=lk_ms, plain_ms=lk_plain_ms)
-    log({"phase": "lk_level", "per_frame_4_levels_ms": lk_ms, "plain_ms": lk_plain_ms,
-         "card": card})
+        iters, min_eig = (ITERS, 25.0) if lev == 0 else (COARSE_ITERS, 0.0)
+        lk_plain_ms += cuda_ms(lambda: K.lk_level_ref(pyr0[lev], pyr1[lev], uv_l, uv_l, valid, HALF,
+                                                      iters, min_eig), 10)
+    bounds = lk_bounds(K, inp)
+    kernels["lk_level"] = dict(max_abs_err=lk_err, ms=clocks["lk_level"]["ms"],
+                               wrapper_ms=clocks["lk_level"]["wrapper_ms"], plain_ms=lk_plain_ms,
+                               bound_ms=bounds["lk_level"][0], bound_by=bounds["lk_level"][1],
+                               library_ms=None)
+    log({"phase": "lk_level", "four_levels_main_path_settings": kernels["lk_level"],
+         "levels_ms": clocks["lk_level"]["levels_ms"], "card": card})
+
+    # ---- lk_track: one launch for the pyramid --------------------------
+    track_rec = check_lk_track(K, dev, inp)
+    kernels["lk_track"] = dict(
+        max_abs_err=track_rec["max_abs_err"], **clocks["lk_track"],
+        plain_ms=cuda_ms(lambda: K.lk_track_ref(pyr0, pyr1, uv0, valid, HALF, ITERS, COARSE_ITERS), 10),
+        bound_ms=bounds["lk_track"][0], bound_by=bounds["lk_track"][1], library_ms=None)
+    log({**track_rec, **kernels["lk_track"], "image_bytes_touched": bounds["image_bytes"],
+         "image_bytes_touched_coarse_to_fine": bounds["image_bytes_coarse_to_fine"],
+         "operations": bounds["operations"], "card": card})
 
     # ---- the slice ---------------------------------------------------
     steps, step, make_carry, st0, frames, windows = slice_steps(dev, sim, imgs, stamps, imu)
@@ -365,7 +734,7 @@ def main():
     st, infos = run_slice()
     launches = dict(K.launch_counts)
     n_steps = len(windows)
-    if launches != {"fast9": n_steps, "lk_level": 4 * n_steps}:
+    if launches != {"fast9": n_steps, "lk_track": n_steps, "lk_level": 0}:
         raise RuntimeError(f"launch counts {launches} for {n_steps} steps")
     cov_ok = [bool(x["cov_ok"].item()) for x in infos]
     used = sum(int(x["num_used"].item()) for x in infos)
@@ -397,20 +766,34 @@ def main():
         t0 = time.perf_counter()
         run_slice()
         reps.append((time.perf_counter() - t0) / n_steps * 1e3)
+    # the same kernels' device time by name under the profiler, 5 steps
+    def five_steps():
+        frames_it = steps()
+        for _ in range(5):
+            next(frames_it)
+
+    profiled = profiled_kernel_ms(five_steps)
+    kernels["fast9"]["profiler_ms"] = profiled.get("fast9_kernel", {}).get("ms")
+    kernels["lk_track"]["profiler_ms"] = profiled.get("lk_kernel", {}).get("ms")
+    kernels["lk_level"]["profiler_ms"] = None  # not launched on the main path
     slice_rec.update({"per_frame_ms_median": statistics.median(reps), "per_frame_ms_reps": reps,
                       "host_syncs_in_one_step": len(caught), "sync_sources": sync_ops,
-                      "card": card})
+                      "profiled_kernels": profiled, "card": card})
     log(slice_rec)
 
     full_step_phase(dev, card)
 
+    src = "uvio_tpu_torch/csrc/"
     log({"kernels": [
-        {"name": "fast9", "route": "cuda", "source": "uvio_tpu_torch/csrc/fast9.cu",
+        {"name": "fast9", "route": "cuda", "source": src + "fast9.cu",
          "replaces": "uvio_tpu/frontend/pallas_kernels.py:78", "launches": launches["fast9"],
          **kernels["fast9"]},
-        {"name": "lk_level", "route": "cuda", "source": "uvio_tpu_torch/csrc/lk_level.cu",
+        {"name": "lk_level", "route": "cuda", "source": src + "lk_level.cu",
          "replaces": "uvio_tpu/frontend/pallas_kernels.py:617", "launches": launches["lk_level"],
          **kernels["lk_level"]},
+        {"name": "lk_track", "route": "cuda", "source": src + "lk_level.cu",
+         "replaces": "uvio_tpu/frontend/pallas_kernels.py:617", "launches": launches["lk_track"],
+         **kernels["lk_track"]},
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

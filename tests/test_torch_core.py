@@ -172,7 +172,7 @@ def test_state_round_trip():
         assert back[n].dtype == arrays[n].dtype, n
         np.testing.assert_array_equal(back[n], arrays[n], err_msg=n)
     # float32 state keeps the time axis in float64
-    t32 = state_from_numpy(arrays, dtype=torch.float32)
+    t32 = state_from_numpy(arrays, device="cpu", dtype=torch.float32)
     assert t32.cov.dtype == torch.float32 and t32.time.item() == arrays["time"]
 
 

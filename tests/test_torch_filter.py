@@ -52,7 +52,7 @@ def _random_state(seed, head=2, fej_offset=1e-3, **extra):
 
 
 def _port(st):
-    return state_from_numpy({n: np.asarray(getattr(st, n)) for n in FIELDS}, dtype=torch.float64)
+    return state_from_numpy({n: np.asarray(getattr(st, n)) for n in FIELDS}, device="cpu", dtype=torch.float64)
 
 
 def _assert_states_close(js, ts, atol):

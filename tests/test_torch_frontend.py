@@ -1,5 +1,5 @@
 """Port parity, vision frontend: histogram equalization, pyramid, the
-plain versions of the two CUDA kernels (FAST-9, one LK level) against
+plain versions of the CUDA kernels (FAST-9, LK) against
 `uvio_tpu`'s XLA path and its Pallas kernels in interpret mode, pyramidal
 LK, grid detection and RANSAC fed JAX's own Gumbel noise.
 
@@ -159,14 +159,17 @@ def test_lk_track_matches():
     img1, img2, uv = _lk_scene(seed=5, H=240, W=320, N=48, shift=(5, -3))
     valid = np.ones(len(uv), bool)
     valid[::7] = False
-    pj = [JK.build_pyramid(jnp.asarray(im), 4) for im in (img1, img2)]
-    pt = [TK.build_pyramid(_t(im), 4) for im in (img1, img2)]
-    uv_j, ok_j = JK.lk_track(pj[0], pj[1], jnp.asarray(uv), jnp.asarray(valid))
-    uv_t, ok_t = TK.lk_track(pt[0], pt[1], _t(uv), _t(valid, torch.bool))
-    uv_j, ok_j = np.asarray(uv_j), np.asarray(ok_j)
-    assert (ok_j == ok_t.numpy()).all()
-    assert ok_j.sum() >= 30
-    assert np.abs(uv_j[ok_j] - uv_t.numpy()[ok_j]).max() < 1e-3
+    # the defaults (4 levels, coarse_iters = 6), then a 3-level pyramid
+    # with other iteration counts
+    for levels, kw in ((4, {}), (3, dict(iters=8, coarse_iters=3))):
+        pj = [JK.build_pyramid(jnp.asarray(im), levels) for im in (img1, img2)]
+        pt = [TK.build_pyramid(_t(im), levels) for im in (img1, img2)]
+        uv_j, ok_j = JK.lk_track(pj[0], pj[1], jnp.asarray(uv), jnp.asarray(valid), **kw)
+        uv_t, ok_t = TK.lk_track(pt[0], pt[1], _t(uv), _t(valid, torch.bool), **kw)
+        uv_j, ok_j = np.asarray(uv_j), np.asarray(ok_j)
+        assert (ok_j == ok_t.numpy()).all()
+        assert ok_j.sum() >= 30
+        assert np.abs(uv_j[ok_j] - uv_t.numpy()[ok_j]).max() < 1e-3
 
 
 def test_grid_detect_matches():

@@ -117,8 +117,8 @@ def _port_inputs(fr):
 def _to_port(st, carry):
     from uvio_tpu_torch.types.state import FIELDS, carry_from_numpy, state_from_numpy
 
-    ts = state_from_numpy({n: np.asarray(getattr(st, n)) for n in FIELDS}, dtype=torch.float64)
-    return ts, carry_from_numpy(jax.tree_util.tree_map(np.asarray, carry))
+    ts = state_from_numpy({n: np.asarray(getattr(st, n)) for n in FIELDS}, device="cpu", dtype=torch.float64)
+    return ts, carry_from_numpy(jax.tree_util.tree_map(np.asarray, carry), device="cpu")
 
 
 def _msckf_selection(fr, tracked, F=40):

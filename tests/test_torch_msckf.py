@@ -62,7 +62,7 @@ def _scene(seed=0, **calib):
 
 
 def _port(st):
-    return state_from_numpy({n: np.asarray(getattr(st, n)) for n in FIELDS}, dtype=torch.float64)
+    return state_from_numpy({n: np.asarray(getattr(st, n)) for n in FIELDS}, device="cpu", dtype=torch.float64)
 
 
 def test_triangulate_batch_matches():

@@ -85,13 +85,13 @@ def replay(fx):
     torch.backends.cudnn.allow_tf32 = False  # make_full_step insists on full-float32 products
     jstep = j_make(_jcfg(fx.config))
     tstep = make_full_step(FullStepConfig.from_dict(fx.config))
-    js, ts = _jstate(fx.state0), state_from_numpy(fx.state0, dtype=T64)
+    js, ts = _jstate(fx.state0), state_from_numpy(fx.state0, device="cpu", dtype=T64)
     frames = []
     for k in range(N_FRAMES):
         b = fx.bundles[k]
         plan = plan_frame(b, float(ts.time))
         js2, ji = jstep(js, _jbundle(b))
-        ts2, ti = tstep(ts, bundle_from_numpy(b, dtype=T64), plan)
+        ts2, ti = tstep(ts, bundle_from_numpy(b, device="cpu", dtype=T64), plan)
         frames.append(dict(bundle=b, plan=plan, j_before=js, j_after=js2, j_info=ji, t_after=ts2, t_info=ti))
         js, ts = js2, ts2
     return frames
@@ -136,10 +136,10 @@ def test_uwb_padding_rows(fx, replay):
     plan = plan_frame(b, float(replay[k]["j_before"].time))
     assert plan.uwb_rows == (True, True, False, False)
     step = make_full_step(FullStepConfig.from_dict(fx.config))
-    st0 = state_from_numpy(state_to_numpy(replay[k - 1]["t_after"]), dtype=T64)
-    full, info = step(st0, bundle_from_numpy(b, dtype=T64), plan)
+    st0 = state_from_numpy(state_to_numpy(replay[k - 1]["t_after"]), device="cpu", dtype=T64)
+    full, info = step(st0, bundle_from_numpy(b, device="cpu", dtype=T64), plan)
     short = {n: (v[:2] if n.startswith("uwb_") else v) for n, v in b.items()}
-    cut, _ = step(st0, bundle_from_numpy(short, dtype=T64), plan._replace(uwb_rows=plan.uwb_rows[:2]))
+    cut, _ = step(st0, bundle_from_numpy(short, device="cpu", dtype=T64), plan._replace(uwb_rows=plan.uwb_rows[:2]))
     for n in FIELDS:
         assert torch.equal(getattr(full, n), getattr(cut, n)), n
     assert not info["uwb_accepted"][2:].any()
@@ -182,7 +182,7 @@ def test_full_step_zupt_matches(fx, jax_zupt_step, stationary):
     js, ji = jax_zupt_step(_jstate(arrays), _jbundle(b))
     torch.backends.cudnn.allow_tf32 = False
     tcfg = dataclasses.replace(FullStepConfig.from_dict(fx.config), try_zupt=True)
-    ts, ti = make_full_step(tcfg)(state_from_numpy(arrays, dtype=T64), bundle_from_numpy(b, dtype=T64),
+    ts, ti = make_full_step(tcfg)(state_from_numpy(arrays, device="cpu", dtype=T64), bundle_from_numpy(b, device="cpu", dtype=T64),
                                   plan_frame(b, float(arrays["time"])))
     assert bool(ti["zupt_accepted"]) == bool(ji["zupt_accepted"]) == stationary
     _assert_infos_equal(ji, ti, 0)
@@ -215,7 +215,7 @@ def test_filter_step_matches(fx, full_ring):
     jstep = j_make(JStepConfig(layout=JL(**c["layout"]), noises=JN(**c["noises"]), sigma_pix=c["sigma_pix"]))
     torch.backends.cudnn.allow_tf32 = False
     tstep = make_step(StepConfig(layout=TL(**c["layout"]), noises=TN(**c["noises"]), sigma_pix=c["sigma_pix"]))
-    js, ts = _jstate(arrays), state_from_numpy(arrays, dtype=T64)
+    js, ts = _jstate(arrays), state_from_numpy(arrays, device="cpu", dtype=T64)
     for k in (0, 1):
         b = fx.bundles[k]
         args = [b[n] for n in ("imu_t", "imu_w", "imu_a", "msckf_uv", "msckf_mask")]

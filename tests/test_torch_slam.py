@@ -107,7 +107,7 @@ def test_landmark_chain_matches(fx, rep):
     """landmark_global (value and FEJ), anchored_chain and point_to_rep on
     the fixture's 25 landmarks, re-expressed in `rep`."""
     L, arrays = _state_in_rep(fx, 16, rep)
-    js, ts, tl = _jstate(arrays), state_from_numpy(arrays, dtype=T64), _tlayout(fx.config, rep)
+    js, ts, tl = _jstate(arrays), state_from_numpy(arrays, device="cpu", dtype=T64), _tlayout(fx.config, rep)
     for fej in (False, True):
         for a, b in zip(JR.landmark_global(js, L, fej=fej), TR.landmark_global(ts, tl, fej=fej)):
             _close(a, b, 1e-10, f"landmark_global fej={fej}")
@@ -176,7 +176,7 @@ def test_anchor_change_matches(fx, rep):
     L, arrays = _state_in_rep(fx, frame, rep, anchors)
     js = _jstate(arrays)
     jout = JR.anchor_change(js, L, jnp.int32(marg), jnp.int32(new))
-    ts = state_from_numpy(arrays, dtype=T64)
+    ts = state_from_numpy(arrays, device="cpu", dtype=T64)
     tout = TR.anchor_change(ts, _tlayout(fx.config, rep), torch.tensor(marg), torch.tensor(new))
     moved = arrays["slam_valid"] & (anchors == marg)
     assert moved.sum() >= 10
@@ -198,8 +198,8 @@ def _pre_slam_state(fx, frame, rep):
     tl = _tlayout(fx.config, rep)
     cfg = dataclasses.replace(FullStepConfig.from_dict(fx.config), layout=tl)
     b = fx.bundles[frame]
-    fb = bundle_from_numpy(b, dtype=T64)
-    st, _, _ = _uwb_drain(state_from_numpy(arrays, dtype=T64), fb, plan_frame(b, arrays["time"]), cfg)
+    fb = bundle_from_numpy(b, device="cpu", dtype=T64)
+    st, _, _ = _uwb_drain(state_from_numpy(arrays, device="cpu", dtype=T64), fb, plan_frame(b, arrays["time"]), cfg)
     st = propagate_and_clone(st, tl, fb.imu_t, fb.imu_w, fb.imu_a, cfg.noises, cfg.gravity_mag,
                              stamp_time=fb.stamp_time)
     st, _ = msckf_update(st, tl, cfg.cam_model, fb.msckf_uv, fb.msckf_mask, sigma_pix=cfg.sigma_pix)
@@ -225,7 +225,7 @@ def test_slam_update_and_init_match(fx, frame, rep):
     js = _jstate(arrays)
     ju, jui = _jit("update", L, cfg.cam_model, cfg.sigma_pix)(
         js, obs_uv=jnp.asarray(b["slam_uv"]), obs_mask=jnp.asarray(b["slam_mask"]))
-    tu, tui = slam_update(state_from_numpy(arrays, dtype=T64), tl, fb.slam_uv, fb.slam_mask,
+    tu, tui = slam_update(state_from_numpy(arrays, device="cpu", dtype=T64), tl, fb.slam_uv, fb.slam_mask,
                           cfg.cam_model, sigma_pix=cfg.sigma_pix)
     for k in ("kept", "failed", "cov_ok"):
         np.testing.assert_array_equal(tui[k].numpy(), np.asarray(jui[k]), err_msg=k)
@@ -239,7 +239,7 @@ def test_slam_update_and_init_match(fx, frame, rep):
     ji, jii = _jit("init", L, cfg.cam_model, cfg.sigma_pix)(
         _jstate(after), obs_uv=jnp.asarray(b["cand_uv"]), obs_mask=jnp.asarray(b["cand_mask"]),
         target_slots=jnp.asarray(b["cand_slots"]), cand_ids=jnp.asarray(b["cand_ids"]))
-    ti, tii = slam_delayed_init(state_from_numpy(after, dtype=T64), tl, fb.cand_uv, fb.cand_mask,
+    ti, tii = slam_delayed_init(state_from_numpy(after, device="cpu", dtype=T64), tl, fb.cand_uv, fb.cand_mask,
                                 fb.cand_slots, fb.cand_ids, cfg.cam_model, sigma_pix=cfg.sigma_pix)
     np.testing.assert_array_equal(tii["inited"].numpy(), np.asarray(jii["inited"]))
     if frame == 3 and rep == 1:  # GLOBAL_3D's stricter baseline gate takes none
@@ -269,7 +269,7 @@ def test_marginalize_slam_and_block_init_match():
                                slam_id=jnp.asarray([4, 5, 6], jnp.int32))
     arrays = _np(js)
     jm = JE.marginalize_slam(js, L, jnp.int32(1))
-    tm = TE.marginalize_slam(state_from_numpy(arrays, dtype=T64), TL(**kw), torch.tensor(1))
+    tm = TE.marginalize_slam(state_from_numpy(arrays, device="cpu", dtype=T64), TL(**kw), torch.tensor(1))
     back = state_to_numpy(tm)
     for n in ("slam_valid", "slam_id", "cov"):
         np.testing.assert_array_equal(back[n], np.asarray(getattr(jm, n)), err_msg=n)

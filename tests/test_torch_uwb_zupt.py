@@ -63,7 +63,7 @@ def _state(layout, seed=0, v=(0.8, -0.3, 0.1), head=3):
 
 
 def _port(js):
-    return state_from_numpy({n: np.asarray(getattr(js, n)) for n in FIELDS}, dtype=T64)
+    return state_from_numpy({n: np.asarray(getattr(js, n)) for n in FIELDS}, device="cpu", dtype=T64)
 
 
 def _assert_states_close(js, ts, atol):

@@ -7,7 +7,9 @@ configuration, and the port must run on a machine without JAX.
 
 Conventions:
   * plain functions on tensors; carried state is a dataclass of tensors;
-  * every constructor takes an explicit `device`, every random draw an
+  * every constructor takes a `device`; None means `default_device()`,
+    which is `cuda:0` or a `RuntimeError` — never a quiet CPU (the CPU
+    parity tests pass `device="cpu"`); every random draw takes an
     explicit `torch.Generator` (or the noise itself, for parity tests);
   * `vmap` is a written-out batch dimension, `lax.fori_loop` a Python
     loop with a fixed count;
@@ -20,4 +22,7 @@ hand-written CUDA kernels for Hopper (`csrc/`), built at first use by
 `_build.py` and wrapped in `frontend/kernels.py`.
 """
 
+from .device import default_device
+
 __version__ = "0.1.0"
+__all__ = ["default_device"]

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-`csrc/*.cu` are compiled by `nvcc` for `sm_90a` into one shared library
-with a plain C interface, `build/uvio_tpu_torch/libuvio_kernels.so`
-under the repository root, at first use. The library is rebuilt when
-the sources' hash changes and loaded with `ctypes`; no PyTorch headers
-are involved, so a build takes seconds.
+`csrc/*.cu` are compiled by `nvcc` for `sm_90a`, one process per source
+and all at once, and linked into one shared library with a plain C
+interface, `build/uvio_tpu_torch/libuvio_kernels.so` under the
+repository root, at first use. The library is rebuilt when the sources'
+hash changes and loaded with `ctypes`; no PyTorch headers are involved,
+so a build takes seconds.
 """
 
 from __future__ import annotations
@@ -17,18 +18,19 @@ import shutil
 import subprocess
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "uvio_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libuvio_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib = None
 
 
 def sources():
-    return sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cu")))
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
 def _nvcc() -> str:
@@ -61,29 +63,57 @@ def build() -> str:
             if f.read().strip() == digest:
                 return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
+    nvcc = _nvcc()
+    tag = f"{LIB_PATH}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in srcs]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)
+    ]
+    report, failed = "", False
+    for proc in procs:
+        report += proc.communicate()[0]
+        failed |= proc.returncode != 0
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", tag + ".tmp", *objs], capture_output=True,
+                              text=True)
+        report += link.stdout + link.stderr
+        failed = link.returncode != 0
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{report}")
+    os.replace(tag + ".tmp", LIB_PATH)
     with open(stamp, "w") as f:
         f.write(digest)
-    return proc.stdout + proc.stderr
+    return report
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argtypes of the entry points `lib` has: pointers and the
+    stream as c_void_p, sizes as c_int."""
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {
+        "uvio_fast9": [P, P, I, I, Fl, P],
+        "uvio_lk_level": [P, P, I, I, P, P, P, P, P, I, I, I, Fl, P],
+        # the pyramids and their sizes are host arrays of `levels` entries
+        "uvio_lk_track": [P, P, P, P, I, P, P, P, P, I, I, I, I, Fl, P],
+        "uvio_empty_launch": [I, I, I, P],
+    }
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = I
+    return lib
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed), with argtypes
-    set: pointers and the stream as c_void_p, sizes as c_int."""
+    """The package's kernel library (built first if needed), bound."""
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(LIB_PATH)
-        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.uvio_fast9.argtypes = [P, P, I, I, Fl, P]
-        lib.uvio_fast9.restype = I
-        lib.uvio_lk_level.argtypes = [P, P, I, I, P, P, P, P, P, I, I, I, Fl, P]
-        lib.uvio_lk_level.restype = I
-        _lib = lib
+        _lib = bind(ctypes.CDLL(LIB_PATH))
     return _lib

@@ -30,6 +30,7 @@ from typing import Tuple
 import torch
 
 from ..cam import models as cam_models
+from ..device import resolve_device
 from ..filter.ekf import marginalize_clone
 from ..filter.propagator import NoiseManager, propagate_and_clone
 from ..types.layout import StateLayout
@@ -113,11 +114,13 @@ def make_fused_vio_step(
       update(state, carry, pyr, img_eq, uv_new, tracked, imu_t, imu_w,
              imu_a, stamp_time) -> (state, carry, info)
 
-    `layout.num_cams` must be 1 (mono odometry path).
+    `layout.num_cams` must be 1 (mono odometry path). `device=None` is
+    `default_device()`: the card, or an error without one.
     """
     if layout.num_cams != 1:
         raise ValueError("the fused path is mono")
     check_full_precision()
+    device = resolve_device(device)
     noises = noises or NoiseManager()
     K = layout.max_clones
     N = num_features

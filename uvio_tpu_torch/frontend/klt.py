@@ -3,16 +3,17 @@ detection, pyramidal Lucas–Kanade, fundamental-matrix RANSAC.
 
 Port of `uvio_tpu/frontend/klt.py` (the reference's
 `ov_core/src/track/TrackKLT.{h,cpp}` + `Grider_GRID`). The FAST-9 score
-map and the per-level LK solve are the CUDA kernels of `kernels.py`;
-everything else is plain PyTorch. Images are float32 (H,W) in [0,255];
-all shapes are static and nothing here waits for the host.
+map and pyramidal LK (`lk_track`, one launch for all levels) are the
+CUDA kernels of `kernels.py`; everything else is plain PyTorch. Images
+are float32 (H,W) in [0,255]; all shapes are static and nothing here
+waits for the host.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels import fast_score, lk_level
+from .kernels import fast_score, lk_level, lk_track
 
 __all__ = [
     "build_pyramid", "fast_score", "grid_detect", "hist_equalize", "lk_level",
@@ -106,27 +107,6 @@ def grid_detect(
         higher = torch.tril(torch.ones((per_cell, per_cell), dtype=torch.bool, device=dev), -1)
         valid = valid & ~(close & higher).any(-1)
     return uv.reshape(G * per_cell, 2), valid.reshape(G * per_cell)
-
-
-def lk_track(pyr_prev, pyr_next, uv_prev, valid, half=7, iters=10, coarse_iters=6):
-    """Pyramidal LK, coarse to fine with scaled guesses: one `lk_level`
-    per level; coarse levels run min(iters, coarse_iters) iterations with
-    min_eig = 0 (they only seed the guess); the ok mask is level 0's."""
-    L = len(pyr_prev)
-    guess = uv_prev / 2.0 ** (L - 1)
-    ok = valid
-    for lev in range(L - 1, -1, -1):
-        uv_l = uv_prev / 2.0**lev
-        guess, ok_l = lk_level(
-            pyr_prev[lev], pyr_next[lev], uv_l, guess, valid, half,
-            iters if lev == 0 else min(iters, coarse_iters),
-            25.0 if lev == 0 else 0.0,
-        )
-        if lev == 0:
-            ok = ok & ok_l
-        else:
-            guess = guess * 2.0
-    return guess, ok
 
 
 def _fundamental_8pt(x1, x2):

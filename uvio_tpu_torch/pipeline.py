@@ -48,6 +48,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .filter.ekf import marginalize_clone
 from .filter.propagator import INTEGRATIONS, NoiseManager, propagate_and_clone, propagate_mean_cov
 from .frontend.fused_vio import check_full_precision
@@ -134,9 +135,11 @@ _INT_FIELDS = ("cand_slots", "cand_ids", "marg_slot")
 
 
 def bundle_from_numpy(fields, device=None, dtype=torch.float64) -> FrameBundle:
-    """A `FrameBundle` on `device` from numpy arrays keyed by field name
+    """A `FrameBundle` on `device` (None: `default_device()`, the card or
+    an error) from numpy arrays keyed by field name
     (a mapping, or a bundle of numpy leaves such as `uvio_tpu`'s). Times
     stay float64, masks bool, indices int64; the rest takes `dtype`."""
+    device = resolve_device(device)
     get = fields.__getitem__ if isinstance(fields, dict) else lambda n: getattr(fields, n)
 
     def conv(name):

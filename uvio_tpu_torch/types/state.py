@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .layout import IMU_MODEL_KALIBR, StateLayout
 
 
@@ -97,7 +98,8 @@ def init_state(layout: StateLayout, dtype=torch.float64, device=None) -> FilterS
 
     `dtype` sets the compute precision of every block except the time
     axis (`time`, `clones_t`), which is always f64: epoch-second
-    timestamps have only ~128 s resolution in f32.
+    timestamps have only ~128 s resolution in f32. `device=None` is
+    `default_device()`: the card, or an error without one.
     """
     K, S, A, C = layout.max_clones, layout.max_slam, layout.max_anchors, layout.num_cams
     q0 = np.array([0.0, 0.0, 0.0, 1.0])
@@ -160,7 +162,9 @@ def where_state(pred: torch.Tensor, a: FilterState, b: FilterState) -> FilterSta
 
 def state_from_numpy(arrays, device=None, dtype=torch.float64) -> FilterState:
     """Build a state from numpy arrays keyed by field name (e.g. the
-    fields of a `uvio_tpu` FilterState passed through `np.asarray`)."""
+    fields of a `uvio_tpu` FilterState passed through `np.asarray`), on
+    `device` (None: `default_device()`)."""
+    device = resolve_device(device)
     return FilterState(
         **{
             name: torch.as_tensor(
@@ -183,7 +187,8 @@ def state_to_numpy(state: FilterState) -> dict:
 
 def carry_from_numpy(carry, device=None):
     """Fused-step track carry `(pyramid list, uv, active, hist_uv,
-    hist_mask)` from numpy arrays."""
+    hist_mask)` from numpy arrays, on `device` (None: `default_device()`)."""
+    device = resolve_device(device)
     pyr, uv, active, hist_uv, hist_mask = carry
     f32 = torch.float32
     return (
