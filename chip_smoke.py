@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and run its raw-image -> pose step and
-its UWB + SLAM filter step on one NVIDIA GPU: the quickest proof that
-`uvio_tpu_torch` works on the card.
+"""Build the port's CUDA kernels and run its raw-image -> pose step, its
+UWB + SLAM filter step and its live host loop (the managers) on one
+NVIDIA GPU: the quickest proof that `uvio_tpu_torch` works on the card.
 
     python3 chip_smoke.py
 
@@ -50,6 +50,26 @@ Phases, each printing one JSON line:
               3 warm repetitions; host syncs over one whole warm replay,
               with how many frames took each branch of the plan. It runs no hand
               kernel (its inputs are features, not images).
+  9. manager — the live host loop, `UVioManager` fed by the port's
+              simulator from the first IMU sample (`eval/capture.py`:
+              `bench.py`'s scenario, 120 frames, seed 7). float64: the state
+              after 20 frames equals the fixture's `state0` and each of the
+              next 100 bundles the fixture's (masks and indices exactly,
+              floats to 1e-9), every info equals the JAX float64 replay's,
+              final position within 1e-6 m. float32: the full step's float32
+              gates, with the host syncs of every frame counted; then 3 more
+              runs for the loop's own time (host bundle build, step from
+              dispatch to the one read-back, host bookkeeping, per frame over
+              frames 20-119, median of the 3). A second configuration takes
+              the branches that scenario never does (60 frames, seed 9, mono,
+              no SLAM): 2 s at rest with static init and ZUPT (init fires,
+              ZUPTs are accepted, the clone ring is rolled back on them),
+              then, handed over by a checkpoint, motion with
+              `async_dispatch`: no host sync on 31 of 32 frames, position
+              within 0.5 m of ground truth. Last, a checkpoint that the JAX
+              manager wrote (`fixtures/manager_ckpt_seed7.npz`) is loaded and
+              run for 10 frames: poses within 1e-8 of the JAX manager's. It
+              runs no hand kernel either.
 Then the kernel table (with each kernel's bound: the larger of its bytes
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted from
 this run's inputs), the `nvidia-smi` line, and the result line.
@@ -61,6 +81,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -632,6 +653,271 @@ def full_step_phase(dev, card):
     log(rec32)
 
 
+class SyncCounter:
+    """Counts, frame by frame, the host syncs that
+    `torch.cuda.set_sync_debug_mode("warn")` reports while a manager is
+    driven: `on_frame` is the drive loop's callback, `per_frame[k]` the
+    syncs of frame k's `feed_features` and of the IMU and UWB feeding
+    before it, `sources` the distinct warnings. (Turning the mode on warns
+    once that it is a prototype; that warning is no sync and is not counted.)"""
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        self._ctx = warnings.catch_warnings(record=True)
+        self._caught = self._ctx.__enter__()
+        warnings.simplefilter("always")
+        self.per_frame, self._seen = [], 0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def _syncs(self):
+        return [str(w.message) for w in self._caught if "synchronizing CUDA operation" in str(w.message)]
+
+    def on_frame(self, k, t):
+        n = len(self._syncs())
+        self.per_frame.append(n - self._seen)
+        self._seen = n
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        self.sources = sorted({m.split("\n")[0][:120] for m in self._syncs()})
+        self._ctx.__exit__(*exc)
+        torch.cuda.synchronize()
+
+
+def manager_phase(dev, card):
+    """The live host loop on the card (module docstring, phase 9)."""
+    manager_bench_scenario(dev, card)
+    manager_rest_then_async(card)
+    manager_jax_checkpoint(card)
+
+
+def manager_bench_scenario(dev, card):
+    """`bench.py`'s scenario live: float64 against the fixture, float32
+    against its gates with the syncs counted, then the loop's own time."""
+    import numpy as np
+    import torch
+
+    from uvio_tpu_torch.eval.capture import bench_scenario, record_live
+    from uvio_tpu_torch.fixtures import load_full_step_fixture
+    from uvio_tpu_torch.pipeline import FrameBundle
+    from uvio_tpu_torch.types.state import FIELDS
+
+    fx = load_full_step_fixture()
+    n_warm, n = 20, len(fx.bundles)
+    exact = lambda ref: ref.dtype == bool or np.issubdtype(ref.dtype, np.integer)
+
+    def worst_diff(got, ref, names, what):
+        """Max abs float difference over `names`; masks and integers must
+        be equal."""
+        worst = 0.0
+        for name in names:
+            a, b = np.asarray(got[name]), np.asarray(ref[name])
+            if a.shape != b.shape or (exact(b) and not np.array_equal(a, b)):
+                raise RuntimeError(f"manager float64: {what} differs from the fixture in {name}")
+            if not exact(b) and a.size:
+                worst = max(worst, float(np.abs(a - b).max()))
+        return worst
+
+    # ---- float64, live: the fixture's state0, bundles and decisions -----
+    sim, mgr = bench_scenario(n_warm + n, seed=7, max_slam=25, dtype="float64")
+    if mgr.state.cov.device != dev:
+        raise RuntimeError(f"the manager's state is on {mgr.state.cov.device}, not {dev}")
+    rec = record_live(sim, mgr, n_warm + n, snapshot_at=n_warm)
+    torch.cuda.synchronize()
+    state_diff = worst_diff(rec["snapshot"], fx.state0, FIELDS, "the state after 20 frames")
+    bundle_diff, first_bad = 0.0, None
+    for k, (b, ref_b) in enumerate(zip(rec["bundles"][n_warm:], fx.bundles)):
+        d = worst_diff(b, ref_b, FrameBundle._fields, f"bundle {k}")
+        if d > 1e-9 and first_bad is None:
+            first_bad = k
+        bundle_diff = max(bundle_diff, d)
+    ref = fx.replays["f64"]
+    bad = []
+    for k, info in enumerate(rec["infos"][n_warm:]):
+        got = _frame_infos(info)
+        diff = [key for key, v in got.items() if not np.array_equal(v, ref[key][k])]
+        if diff:
+            bad.append({"frame": k, "differs": diff})
+    final_diff = float(np.linalg.norm(mgr.get_pose()[1] - ref["p"][-1]))
+    rec64 = {"phase": "manager", "precision": "float64", "frames": n_warm + n,
+             "steps": len(rec["bundles"]), "state0_max_diff": state_diff,
+             "bundles_max_diff": bundle_diff, "infos_equal_all": not bad,
+             "final_p_diff_vs_jax_m": final_diff, "time_host_is_state_time":
+             mgr._time_host == float(mgr.state.time), "card": card}
+    log(rec64)
+    if (len(rec["bundles"]) != n_warm + n or state_diff > 1e-9 or bundle_diff > 1e-9 or bad
+            or final_diff > 1e-6 or not rec64["time_host_is_state_time"]):
+        log({"first_bundle_past_1e-9": first_bad, "infos_differ": bad[:10]})
+        raise RuntimeError("the live float64 loop does not reproduce the fixture")
+
+    # ---- float32, live: accuracy gates, with every frame's syncs counted
+    def live32(**kw):
+        sim, mgr = bench_scenario(n_warm + n, seed=7, max_slam=25, dtype="float32")
+        t0 = time.perf_counter()
+        rec = record_live(sim, mgr, n_warm + n, **kw)
+        torch.cuda.synchronize()
+        return mgr, rec, time.perf_counter() - t0
+
+    with SyncCounter() as syncs:
+        mgr, rec, _ = live32(on_frame=syncs.on_frame)
+    ref = fx.replays["f32"]
+    p = np.stack([x.cpu().numpy() for x in rec["p"][n_warm:]]).astype(np.float64)
+    cov_ok = [bool(i["cov_ok"].item()) for i in rec["infos"]]
+    uwb = sum(int(i["uwb_accepted"].sum().item()) for i in rec["infos"][n_warm:])
+    uwb_ref = int(ref["uwb_accepted"].sum())
+    rms = float(np.sqrt(np.mean(np.sum((p - fx.gt_p) ** 2, axis=1))))
+    rms_ref = float(np.sqrt(np.mean(np.sum((ref["p"] - fx.gt_p) ** 2, axis=1))))
+    slots = int(mgr.state.slam_valid.sum().item())
+    bench_syncs = syncs.per_frame[n_warm:]
+    rec32 = {"phase": "manager", "precision": "float32", "frames": n_warm + n,
+             "cov_ok_all": all(cov_ok), "rms_p_err_m": rms, "rms_p_err_jax_m": rms_ref,
+             "uwb_accepted": uwb, "uwb_accepted_jax": uwb_ref, "slam_slots_end": slots,
+             "host_syncs_per_frame_median": statistics.median(bench_syncs),
+             "host_syncs_per_frame_max": max(bench_syncs),
+             "frames_with_one_sync": sum(x == 1 for x in bench_syncs),
+             "sync_sources": syncs.sources}
+    if not (all(cov_ok) and len(cov_ok) == n_warm + n and rms <= rms_ref + 0.02
+            and abs(uwb - uwb_ref) <= 0.02 * uwb_ref and slots == fx.config["layout"]["max_slam"]):
+        log(rec32)
+        raise RuntimeError("the live float32 loop failed its gates")
+
+    # ---- the loop's own time: 3 more float32 runs, frames 20-119 --------
+    reps = []
+    for _ in range(3):
+        _, r, wall = live32()
+        rows = r["timings"][n_warm:]
+        mean_ms = lambda key: 1e3 * sum(row[key] for row in rows) / len(rows)
+        reps.append({"build_ms": mean_ms("uwb"), "step_ms": mean_ms("propagation"),
+                     "bookkeeping_ms": mean_ms("marginalization"), "total_ms": mean_ms("total"),
+                     "wall_ms_per_frame_all_120": 1e3 * wall / (n_warm + n)})
+    rec32.update({k + "_median": statistics.median(r[k] for r in reps) for k in reps[0]})
+    rec32.update({"reps": reps, "card": card})
+    log(rec32)
+
+
+def manager_rest_then_async(card):
+    """60 frames, seed 9, mono, no SLAM: 2 s at rest under a manager with
+    static init and ZUPT, then, handed over by a checkpoint, motion under
+    one with `async_dispatch`."""
+    import numpy as np
+    import torch
+
+    from uvio_tpu_torch.eval.capture import drive
+    from uvio_tpu_torch.init.static_init import StaticInitOptions
+    from uvio_tpu_torch.manager import CameraConfig, VioConfig, VioManager
+    from uvio_tpu_torch.math import quat_to_rot
+    from uvio_tpu_torch.sim import SimParams, Simulator, circle_trajectory
+    from uvio_tpu_torch.types.state import FIELDS
+
+    still = 2.0
+    sim = Simulator(SimParams(sim_freq_imu=200.0, sim_freq_cam=10.0, num_pts=60, seed=9),
+                    trajectory=circle_trajectory(duration=6.0 + 8.0, still_time=still))
+    cam = sim.params.cameras[0]
+    base = dict(max_clones=11, max_slam=0, sigma_pix=sim.params.sigma_pix, dtype="float32",
+                cameras=[CameraConfig(model=cam.model, intrinsics=cam.intrinsics,
+                                      q_ItoC=cam.q_ItoC, p_IinC=cam.p_IinC)])
+    rest = VioManager(VioConfig(use_static_init=True, try_zupt=True, zupt_max_disparity=3.0,
+                                init_options=StaticInitOptions(window_time=1.0, imu_thresh=0.1), **base))
+    n_rest = int(round((still + 0.4 - sim.t_start) * 10))  # frames until 0.4 s into the motion
+    zupt_rec = {"accepted": 0, "rolled_back": 0, "tried": 0, "init_frame": None}
+    full = rest._jit_full
+
+    def zupt_hook(state, fields):
+        out = full(state, fields)
+        zupt_rec["tried"] += int(fields["zupt_try"])
+        zupt_rec["_last"] = out[1]["zupt_accepted"]
+        return out
+
+    rest._jit_full = zupt_hook
+
+    def after_rest_frame(k, t):
+        if rest.is_initialized and zupt_rec["init_frame"] is None:
+            zupt_rec["init_frame"] = k
+        acc = zupt_rec.pop("_last", None)
+        if acc is not None and bool(acc.item()):
+            # no clone on a frozen frame: the host's ring is again the
+            # device's, and the state time moved to the frame's
+            valid = rest.state.clones_valid.cpu().numpy()
+            device_ring = {int(k): float(v) for k, v in zip(np.nonzero(valid)[0],
+                                                            rest.state.clones_t.cpu().numpy()[valid])}
+            zupt_rec["accepted"] += 1
+            zupt_rec["rolled_back"] += int(rest.slot_times == device_ring and t not in device_ring.values()
+                                           and rest._time_host == t == float(rest.state.time))
+
+    drive(sim, rest, n_rest, on_frame=after_rest_frame)
+    rest._jit_full = full
+    if not rest.is_initialized:
+        raise RuntimeError("static initialization did not fire at rest")
+    t_init, q_init, p_init = rest.init_replay_rows[0]
+    moving = VioManager(VioConfig(async_dispatch=True, **base))
+    with tempfile.TemporaryDirectory() as tmp:
+        rest.save_checkpoint(os.path.join(tmp, "handover.npz"))
+        moving.load_checkpoint(os.path.join(tmp, "handover.npz"))
+    handed = all(torch.equal(getattr(rest.state, f), getattr(moving.state, f)) for f in FIELDS)
+    n_async = 60 - n_rest
+    with SyncCounter() as syncs:
+        drive(sim, moving, n_async, on_frame=syncs.on_frame)
+    per_frame = syncs.per_frame
+    # the estimate lives in the frame static init chose (origin at the init
+    # pose, its own yaw): map it into the simulator's by the init pose
+    t_end = moving._time_host
+    g_i, g_e = sim.get_gt_state(t_init), sim.get_gt_state(t_end)
+    R_align = (quat_to_rot(torch.as_tensor(g_i["q_GtoI"])).T @ quat_to_rot(torch.as_tensor(q_init))).numpy()
+    p_est = R_align @ (moving.get_pose()[1].astype(np.float64) - p_init) + g_i["p_IinG"]
+    p_err = float(np.linalg.norm(p_est - g_e["p_IinG"]))
+    moved = float(np.linalg.norm(g_e["p_IinG"] - g_i["p_IinG"]))
+    finite = bool(torch.isfinite(moving.state.cov).all().item())
+    rec2 = {"phase": "manager", "config": "mono, seed 9, static init + ZUPT at rest, then async",
+            "frames": n_rest + n_async, "rest_frames": n_rest, "static_init_at_frame":
+            zupt_rec["init_frame"], "zupt_tried": zupt_rec["tried"], "zupt_accepted":
+            zupt_rec["accepted"], "zupt_ring_rolled_back": zupt_rec["rolled_back"],
+            "checkpoint_handover_bit_equal": handed, "async_frames": n_async,
+            "async_syncs_per_frame": per_frame, "async_frames_without_sync":
+            sum(x == 0 for x in per_frame), "async_sync_sources": syncs.sources,
+            "deferred_checks": n_async // 32, "final_p_err_m": p_err, "path_length_m": moved,
+            "cov_finite": finite, "time_host_is_state_time": t_end == float(moving.state.time),
+            "card": card}
+    log(rec2)
+    ok_syncs = all((x == 0) if (i + 1) % 32 else (x >= 1) for i, x in enumerate(per_frame))
+    if not (zupt_rec["accepted"] >= 1
+            and zupt_rec["rolled_back"] == zupt_rec["accepted"] and handed and ok_syncs
+            and n_async >= 32 and p_err < 0.5 and moved > 1.0 and finite
+            and rec2["time_host_is_state_time"] and len(per_frame) == n_async):
+        raise RuntimeError("the static-init / ZUPT / async configuration failed its gates")
+
+
+def manager_jax_checkpoint(card):
+    """The checkpoint that the JAX manager wrote after frame 20 of
+    `bench.py`'s scenario, loaded and run on for 10 frames."""
+    import numpy as np
+
+    from uvio_tpu_torch.eval.capture import bench_scenario, drive
+    from uvio_tpu_torch.fixtures import MANAGER_CKPT_FIXTURE, load_manager_ckpt_reference
+
+    ref = load_manager_ckpt_reference()
+    sim, mgr = bench_scenario(120, seed=7, max_slam=25, dtype="float64")  # the fixture's simulator
+    drive(sim, None, 20)  # the simulator alone, to where the checkpoint was taken
+    mgr.load_checkpoint(MANAGER_CKPT_FIXTURE)
+    poses = []
+    drive(sim, mgr, len(ref["ref_t"]), on_frame=lambda k, t: poses.append((t, *mgr.get_pose())))
+    t_same = all(t == rt for (t, _, _), rt in zip(poses, ref["ref_t"]))
+    q_diff = max(float(np.abs(q - rq).max()) for (_, q, _), rq in zip(poses, ref["ref_q"]))
+    p_diff = max(float(np.abs(p - rp).max()) for (_, _, p), rp in zip(poses, ref["ref_p"]))
+    rec3 = {"phase": "manager", "config": "checkpoint written by the JAX manager after frame 20",
+            "frames": len(poses), "stamps_equal": t_same, "max_q_diff": q_diff, "max_p_diff_m": p_diff,
+            "slam_landmarks_restored": len(mgr.slam_slot_by_fid), "card": card}
+    log(rec3)
+    if not (len(poses) == len(ref["ref_t"]) and t_same and q_diff <= 1e-8 and p_diff <= 1e-8):
+        raise RuntimeError("the restored JAX checkpoint does not reproduce the JAX manager's poses")
+
+
 def main():
     import torch
 
@@ -782,6 +1068,7 @@ def main():
     log(slice_rec)
 
     full_step_phase(dev, card)
+    manager_phase(dev, card)
 
     src = "uvio_tpu_torch/csrc/"
     log({"kernels": [

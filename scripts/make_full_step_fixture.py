@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Write the replay fixture of the full filter step,
-`uvio_tpu_torch/fixtures/full_step_seed7.npz`.
+`uvio_tpu_torch/fixtures/full_step_seed7.npz`, and beside it the manager
+checkpoint fixture `manager_ckpt_seed7.npz`.
 
     JAX_PLATFORMS=cpu python scripts/make_full_step_fixture.py [--out PATH]
 
@@ -24,6 +25,14 @@ it without JAX):
                      SNAPSHOTS (one SLAM landmark and 8 candidates; all 25
                      slots full)
   gt_p               ground-truth position at each bundle's stamp_time
+
+The second file, written into the same directory, carries an estimator
+from `uvio_tpu` to the port: the same scenario is run live once more, the
+JAX `UVioManager` saves a checkpoint after frame 20 (`CKPT_FRAME`), a
+fresh JAX manager loads it and runs frames 21-30. The file is that
+checkpoint, entry for entry (`state/<field>`, `__meta__`; compressed),
+plus `ref_t`, `ref_q`, `ref_p`: the restored manager's pose after each of
+the 10 frames.
 """
 
 import argparse
@@ -40,29 +49,99 @@ import numpy as np  # noqa: E402
 
 SEED, N_WARM, N_BENCH, MAX_SLAM = 7, 20, 100, 25
 SNAPSHOTS = (3, 16)
+CKPT_FRAME, CKPT_MORE = 20, 10
+CKPT_NAME = "manager_ckpt_seed7.npz"
+ANCHORS = {
+    1: (np.array([4.0, 4.0, 2.0]), 0.15, 0.01),
+    2: (np.array([-4.0, 4.0, 0.5]), -0.1, 0.005),
+    3: (np.array([-4.0, -4.0, 2.5]), 0.2, 0.0),
+    4: (np.array([4.0, -4.0, 1.0]), 0.0, 0.02),
+}
 DEFAULT_OUT = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "uvio_tpu_torch", "fixtures",
     "full_step_seed7.npz",
 )
 
 
-def _ground_truth(stamps):
-    """The capture's simulator (same seed, anchors and duration), read at
-    each stamp."""
+def _simulator():
+    """The capture's simulator (same seed, anchors and duration)."""
     from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
 
-    anchors = {
-        1: (np.array([4.0, 4.0, 2.0]), 0.15, 0.01),
-        2: (np.array([-4.0, 4.0, 0.5]), -0.1, 0.005),
-        3: (np.array([-4.0, -4.0, 2.5]), 0.2, 0.0),
-        4: (np.array([4.0, -4.0, 1.0]), 0.0, 0.02),
-    }
-    sim = Simulator(
+    return Simulator(
         SimParams(sim_freq_imu=200.0, sim_freq_cam=10.0, num_pts=60, seed=SEED,
-                  uwb_anchors=anchors),
+                  uwb_anchors=ANCHORS),
         trajectory=circle_trajectory(duration=(N_WARM + N_BENCH) / 10.0 + 8.0),
     )
+
+
+def _ground_truth(stamps):
+    """The simulator's position at each stamp."""
+    sim = _simulator()
     return np.stack([sim.get_gt_state(float(t))["p_IinG"] for t in stamps])
+
+
+def _manager(sim):
+    """The capture's `UVioManager` (`uvio_tpu/eval/capture.py`), float64."""
+    from uvio_tpu.manager import CameraConfig
+    from uvio_tpu.uwb_manager import AnchorConfig, UVioConfig, UVioManager
+
+    cam = sim.params.cameras[0]
+    rng = np.random.default_rng(1)
+    anchors = [
+        AnchorConfig(anchor_id=aid, p_AinG=p + rng.normal(scale=0.05, size=3),
+                     prior_cov=np.diag([0.05**2] * 3 + [0.25**2, 0.025**2]))
+        for aid, (p, g, a) in ANCHORS.items()
+    ]
+    return UVioManager(UVioConfig(
+        max_clones=11, max_msckf_in_update=40, max_slam=MAX_SLAM, sigma_pix=sim.params.sigma_pix,
+        cameras=[CameraConfig(model=cam.model, intrinsics=cam.intrinsics, q_ItoC=cam.q_ItoC,
+                              p_IinC=cam.p_IinC)],
+        max_anchors=len(anchors), anchors=anchors, sigma_range=sim.params.sigma_range,
+        dtype="float64",
+    ))
+
+
+def _drive(sim, mgr, n_frames, on_frame=None):
+    """The capture's feeding loop for `n_frames` camera frames."""
+    frames = 0
+    while frames < n_frames:
+        t, wm, am = sim.get_next_imu()
+        mgr.feed_imu(t, wm, am)
+        if sim.cur_uwb_t + 1.0 / sim.params.uwb_freq <= t:
+            mgr.feed_uwb(*sim.get_next_uwb())
+        if sim.cur_cam_t + 1.0 / sim.params.sim_freq_cam <= t:
+            tc, obs = sim.get_next_cam()
+            mgr.feed_features(tc, obs)
+            frames += 1
+            if on_frame is not None:
+                on_frame(tc)
+
+
+def make_manager_checkpoint(out):
+    """Write the manager checkpoint fixture (module docstring) to `out`."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    sim = _simulator()
+    mgr = _manager(sim)
+    gt0 = sim.get_gt_state(sim.t_start)
+    mgr.initialize_with_gt(sim.t_start, gt0["q_GtoI"], gt0["p_IinG"], gt0["v_IinG"], gt0["bg"], gt0["ba"])
+    _drive(sim, mgr, CKPT_FRAME)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        mgr.save_checkpoint(path)
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files}
+        restored = _manager(sim)
+        restored.load_checkpoint(path)
+    ref = []
+    _drive(sim, restored, CKPT_MORE,
+           on_frame=lambda tc: ref.append((tc, np.asarray(restored.state.q), np.asarray(restored.state.p))))
+    arrays["ref_t"] = np.array([r[0] for r in ref])
+    arrays["ref_q"] = np.stack([r[1] for r in ref])
+    arrays["ref_p"] = np.stack([r[2] for r in ref])
+    np.savez_compressed(out, **arrays)
+    print(f"wrote {out}: {os.path.getsize(out)} bytes in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _replay(step, state, bundles, snaps):
@@ -128,11 +207,13 @@ def make(out):
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez_compressed(out, **arrays)
     print(f"wrote {out}: {os.path.getsize(out)} bytes", flush=True)
+    make_manager_checkpoint(os.path.join(os.path.dirname(os.path.abspath(out)), CKPT_NAME))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--out", default=DEFAULT_OUT,
+                    help="the replay fixture; the checkpoint fixture goes into its directory")
     make(ap.parse_args().out)
 
 

@@ -1,7 +1,9 @@
 """Port parity, simulator: the float64 B-spline kinematics (closed-form
 derivatives in the port, `jax.jacfwd` in `uvio_tpu`) agree to 1e-9; the
 same seed gives the same IMU stream and feature map; rendered frames
-agree to 1e-3 (float32 output of float64 blob sums)."""
+agree to 1e-3 (float32 output of float64 blob sums); the camera tracks
+(`get_next_cam`) carry the same ids with uv to 1e-9 and the UWB ranges
+(`get_next_uwb`) agree to 1e-9 over 30 frames, mono and stereo."""
 
 import numpy as np
 import pytest
@@ -69,3 +71,59 @@ def test_render_image_matches(sims):
         assert a.shape == b.shape == (240, 376) and b.dtype == np.float32
         assert np.abs(a - b).max() < 1e-3
         assert b.max() > 150.0  # blobs were drawn
+
+
+ANCHORS = {
+    1: (np.array([4.0, 4.0, 2.0]), 0.15, 0.01),
+    2: (np.array([-4.0, 4.0, 0.5]), -0.1, 0.005),
+    3: (np.array([-4.0, -4.0, 2.5]), 0.2, 0.0),
+}
+
+
+@pytest.mark.parametrize("stereo", [False, True])
+def test_cam_and_uwb_streams_match(stereo):
+    """30 camera frames and the range sets between them, each package's
+    simulator driven by the managers' loop: same stamps, same surviving
+    ids in the same order, uv and ranges to 1e-9."""
+    from uvio_tpu.sim import SimCamera as JC
+    from uvio_tpu.sim import SimParams as JP
+    from uvio_tpu.sim import Simulator as JS
+    from uvio_tpu.sim import circle_trajectory as j_traj
+
+    from uvio_tpu_torch.sim import SimCamera as TC
+    from uvio_tpu_torch.sim import SimParams as TP
+    from uvio_tpu_torch.sim import Simulator as TS
+    from uvio_tpu_torch.sim import circle_trajectory as t_traj
+
+    def cams(C):
+        left = C()
+        if not stereo:
+            return [left]
+        return [left, C(p_IinC=np.array([-0.11, 0.0, 0.0]), q_ItoC=np.array([0.0, 0.01, 0.0, 1.0]) / np.sqrt(1.0001),
+                        intrinsics=np.array([457.0, 456.0, 379.0, 255.0, -0.28, 0.07, 2e-4, 2e-5]))]
+
+    kw = dict(sim_freq_imu=200.0, sim_freq_cam=10.0, num_pts=60, seed=7, uwb_anchors=ANCHORS,
+              uwb_p_IinU=np.array([0.05, -0.02, 0.1]))
+    js = JS(JP(cameras=cams(JC), **kw), trajectory=j_traj(duration=8.0))
+    ts = TS(TP(cameras=cams(TC), **kw), trajectory=t_traj(duration=8.0))
+    frames = sets = 0
+    while frames < 30:
+        (t, _, _), (t2, _, _) = js.get_next_imu(), ts.get_next_imu()
+        assert t == t2
+        if js.cur_uwb_t + 1.0 / js.params.uwb_freq <= t:
+            assert ts.cur_uwb_t == js.cur_uwb_t
+            (tu1, r1), (tu2, r2) = js.get_next_uwb(), ts.get_next_uwb()
+            assert tu1 == tu2 and list(r1) == list(r2)
+            np.testing.assert_allclose(list(r2.values()), list(r1.values()), rtol=0, atol=1e-9)
+            sets += 1
+        if js.cur_cam_t + 1.0 / js.params.sim_freq_cam <= t:
+            assert ts.cur_cam_t == js.cur_cam_t
+            (tc1, obs1), (tc2, obs2) = js.get_next_cam(), ts.get_next_cam()
+            assert tc1 == tc2 and len(obs1) == len(obs2) == (2 if stereo else 1)
+            for (ids1, uv1), (ids2, uv2) in zip(obs1, obs2):
+                np.testing.assert_array_equal(ids2, ids1)
+                assert len(ids1) > 20
+                np.testing.assert_allclose(uv2, uv1, rtol=0, atol=1e-9)
+            frames += 1
+    assert sets >= 55
+    assert TS(TP(seed=7), trajectory=t_traj(duration=4.0)).get_next_uwb() is None  # no anchors

@@ -191,9 +191,9 @@ def marginalize_clone(state: FilterState, layout: StateLayout, slot: torch.Tenso
     )
 
 
-def marginalize_slam(state: FilterState, layout: StateLayout, slot: torch.Tensor) -> FilterState:
-    """Drop a landmark: invalidate its slot and zero its covariance rows
-    and columns."""
+def marginalize_slam(state: FilterState, layout: StateLayout, slot) -> FilterState:
+    """Drop a landmark: invalidate its slot (an int or a device tensor)
+    and zero its covariance rows and columns."""
     cov = _zero_rows_cols(state.cov, _slot_index(layout.slam_off + 3 * slot, 3, state.cov.device))
     onehot = torch.arange(layout.max_slam, device=state.slam_valid.device) == slot
     return state.replace(

@@ -18,8 +18,9 @@ one window:
   * pass 3 composes (Phi, Qd) pairwise in a log-depth tree.
 
 Padded samples carry dt=0 and contribute exactly F=I, Qd=0. Error
-order within the 15-dof IMU block: theta p v bg ba. IMU-intrinsic error
-states (`layout.imu_intr_dim > 0`) are not ported and raise.
+order within the 15-dof IMU block: theta p v bg ba; the IMU-intrinsic error
+states (`layout.imu_intr_dim` of 15 or 24), when calibrated, follow it
+directly: F gains their columns, and their own rows stay the identity.
 """
 
 from __future__ import annotations
@@ -65,6 +66,27 @@ def dm_matrix(vec, imu_model: int):
 def tg_matrix(vec):
     """3x3 gravity-sensitivity matrix, column-wise fill (`State::Tg`)."""
     return vec.reshape(3, 3).T
+
+
+def _h_dm(v, imu_model: int):
+    """d(Dm @ v)/d(vec), (...,3,6), for v (...,3)
+    (`Propagator::compute_H_Dw/H_Da`)."""
+    z = torch.zeros_like(v[..., 0])
+    v0, v1, v2 = v[..., 0], v[..., 1], v[..., 2]
+    if imu_model == IMU_MODEL_KALIBR:
+        # cols: v1*I3 | v2*e2 | v2*e3 | v3*e3
+        rows = [[v0, z, z, z, z, z], [z, v0, z, v1, z, z], [z, z, v0, z, v1, v2]]
+    else:
+        # cols: v1*e1 | v2*e1 | v2*e2 | v3*I3
+        rows = [[v0, v1, z, v2, z, z], [z, z, v1, z, v2, z], [z, z, z, z, z, v2]]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def _h_tg(a):
+    """d(Tg @ a)/d(vec), (...,3,9) = [a1*I3, a2*I3, a3*I3] for a (...,3)
+    (`Propagator::compute_H_Tg`)."""
+    eye3 = torch.eye(3, dtype=a.dtype, device=a.device)
+    return torch.cat([a[..., k, None, None] * eye3 for k in range(3)], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,10 +196,12 @@ def _xi_sum(w_hat, a_hat, dt):
     return pick(Xi1_s, Xi1_l), pick(Xi2_s, Xi2_l), Jr_ktok1, pick(Xi3_s, Xi3_l), pick(Xi4_s, Xi4_l)
 
 
-def _f_and_g_analytic(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, xi, RwDw, RaDa, TgM):
-    """F (n,15,15) and G (n,15,12) with the ACI² closed-form noise/bias
+def _f_and_g_analytic(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, xi, layout, intr):
+    """F (n,15,15+s) and G (n,15,12) with the ACI² closed-form noise/bias
     integrals (`compute_F_and_G_analytic`, `Propagator.cpp:693-829`),
-    for a layout without IMU-intrinsic error states."""
+    s = layout.imu_intr_dim. `intr` holds the correction matrices and the
+    per-interval readings (`_intrinsics`)."""
+    RwDw, RaDa, TgM = intr["RwDw"], intr["RaDa"], intr["Tg"]
     n = R_k.shape[0]
     dtype, device = R_k.dtype, R_k.device
     eye3 = torch.eye(3, dtype=dtype, device=device)
@@ -193,7 +217,8 @@ def _f_and_g_analytic(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, xi, RwDw,
     dp = new_p - p_k - v_k * dt[:, None] + 0.5 * gravity * (dt * dt)[:, None]
     dv = new_v - v_k + gravity * dt[:, None]
 
-    F = torch.zeros((n, 15, 15), dtype=dtype, device=device)
+    s = layout.imu_intr_dim
+    F = torch.zeros((n, 15, 15 + s), dtype=dtype, device=device)
     F[:, 0:3, 0:3] = dR
     F[:, 3:6, 0:3] = -skew(dp) @ RkT
     F[:, 6:9, 0:3] = -skew(dv) @ RkT
@@ -209,6 +234,35 @@ def _f_and_g_analytic(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, xi, RwDw,
     F[:, 6:9, 12:15] = -P1w @ RaDa
     F[:, 12:15, 12:15] = eye3
 
+    if s > 0:
+        L = layout
+        R_w, R_a = intr["R_w"], intr["R_a"]
+        H_Dw = _h_dm(intr["w_unc"], L.imu_model)
+        H_Da = _h_dm(intr["a_unc"], L.imu_model)
+        dw0, da0, th0 = L.imu_dw_off, L.imu_da_off, L.imu_theta_off
+        F[:, 0:3, dw0 : dw0 + 6] = dRJrdt @ R_w @ H_Dw
+        F[:, 3:6, dw0 : dw0 + 6] = -P4 @ R_w @ H_Dw
+        F[:, 6:9, dw0 : dw0 + 6] = -P3 @ R_w @ H_Dw
+        F[:, 0:3, da0 : da0 + 6] = -dRJrdt @ RwDw @ TgM @ R_a @ H_Da
+        F[:, 3:6, da0 : da0 + 6] = P2w @ R_a @ H_Da
+        F[:, 6:9, da0 : da0 + 6] = P1w @ R_a @ H_Da
+        if L.calib_imu_g_sensitivity:
+            tg0 = L.imu_tg_off
+            H_Tg = _h_tg(intr["a_k"])
+            F[:, 0:3, tg0 : tg0 + 9] = -dRJrdt @ RwDw @ H_Tg
+            F[:, 3:6, tg0 : tg0 + 9] = P4 @ RwDw @ H_Tg
+            F[:, 6:9, tg0 : tg0 + 9] = P3 @ RwDw @ H_Tg
+        if L.imu_model == IMU_MODEL_KALIBR:  # gyro-to-IMU rotation error
+            sw = skew(intr["w_k"])
+            F[:, 0:3, th0 : th0 + 3] = dRJrdt @ sw
+            F[:, 3:6, th0 : th0 + 3] = -P4 @ sw
+            F[:, 6:9, th0 : th0 + 3] = -P3 @ sw
+        else:  # acc-to-IMU rotation error
+            sa = skew(intr["a_k"])
+            F[:, 0:3, th0 : th0 + 3] = -dRJrdt @ RwDw @ TgM @ sa
+            F[:, 3:6, th0 : th0 + 3] = P2w @ sa
+            F[:, 6:9, th0 : th0 + 3] = P1w @ sa
+
     G = torch.zeros((n, 15, 12), dtype=dtype, device=device)
     G[:, 0:3, 0:3] = -dRJrdt @ RwDw
     G[:, 3:6, 0:3] = P4 @ RwDw
@@ -221,10 +275,11 @@ def _f_and_g_analytic(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, xi, RwDw,
     return F, G
 
 
-def _f_and_g_discrete(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, RwDw, RaDa, TgM):
-    """F (n,15,15) and G (n,15,12) of the discrete closed form
-    (`compute_F_and_G_discrete`, `Propagator.cpp:830-960`), for a layout
-    without IMU-intrinsic error states."""
+def _f_and_g_discrete(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, layout, intr):
+    """F (n,15,15+s) and G (n,15,12) of the discrete closed form
+    (`compute_F_and_G_discrete`, `Propagator.cpp:830-960`),
+    s = layout.imu_intr_dim; `intr` as for `_f_and_g_analytic`."""
+    RwDw, RaDa, TgM = intr["RwDw"], intr["RaDa"], intr["Tg"]
     n = R_k.shape[0]
     dtype, device = R_k.dtype, R_k.device
     eye3 = torch.eye(3, dtype=dtype, device=device)
@@ -235,7 +290,8 @@ def _f_and_g_discrete(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, RwDw, RaD
     dp = new_p - p_k - v_k * dt[:, None] + 0.5 * gravity * (dt * dt)[:, None]
     dv = new_v - v_k + gravity * dt[:, None]
 
-    F = torch.zeros((n, 15, 15), dtype=dtype, device=device)
+    s = layout.imu_intr_dim
+    F = torch.zeros((n, 15, 15 + s), dtype=dtype, device=device)
     F[:, 0:3, 0:3] = dR
     F[:, 0:3, 9:12] = -dRJrdt @ RwDw
     F[:, 0:3, 12:15] = dRJrdt @ RwDw @ TgM @ RaDa
@@ -248,6 +304,29 @@ def _f_and_g_discrete(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, RwDw, RaD
     F[:, 6:9, 12:15] = -dt3 * RkT @ RaDa
     F[:, 9:12, 9:12] = eye3
     F[:, 12:15, 12:15] = eye3
+
+    if s > 0:
+        L = layout
+        R_w, R_a = intr["R_w"], intr["R_a"]
+        H_Dw = _h_dm(intr["w_unc"], L.imu_model)
+        H_Da = _h_dm(intr["a_unc"], L.imu_model)
+        dw0, da0, th0 = L.imu_dw_off, L.imu_da_off, L.imu_theta_off
+        F[:, 0:3, dw0 : dw0 + 6] = dRJrdt @ R_w @ H_Dw
+        # the exact chain rule d(w_I)/d(Da) = -R_w Dw Tg R_a H_Da; the
+        # reference omits Dw in this block (`Propagator.cpp:934`)
+        F[:, 0:3, da0 : da0 + 6] = -dRJrdt @ RwDw @ TgM @ R_a @ H_Da
+        F[:, 3:6, da0 : da0 + 6] = 0.5 * dt3 * dt3 * RkT @ R_a @ H_Da
+        F[:, 6:9, da0 : da0 + 6] = dt3 * RkT @ R_a @ H_Da
+        if L.calib_imu_g_sensitivity:
+            tg0 = L.imu_tg_off
+            F[:, 0:3, tg0 : tg0 + 9] = -dRJrdt @ RwDw @ _h_tg(intr["a_k"])
+        if L.imu_model == IMU_MODEL_KALIBR:  # gyro-to-IMU rotation error
+            F[:, 0:3, th0 : th0 + 3] = dRJrdt @ skew(intr["w_k"])
+        else:  # acc-to-IMU rotation error
+            sa = skew(intr["a_k"])
+            F[:, 0:3, th0 : th0 + 3] = -dRJrdt @ RwDw @ TgM @ sa
+            F[:, 3:6, th0 : th0 + 3] = 0.5 * dt3 * dt3 * RkT @ sa
+            F[:, 6:9, th0 : th0 + 3] = dt3 * RkT @ sa
 
     G = torch.zeros((n, 15, 12), dtype=dtype, device=device)
     G[:, 0:3, 0:3] = -dRJrdt @ RwDw
@@ -300,15 +379,23 @@ def _corrected_readings(state, imu_t, imu_w, imu_a, model):
     """Pass 0, batched measurement correction with the IMU intrinsics
     (identity unless seeded):
       a_I = R_AtoI Da (a_m - ba);  w_I = R_WtoI Dw (w_m - bg - Tg a_I).
-    Returns (w_c, a_c, dts, RwDw, RaDa, TgM)."""
+    Returns (w_c, a_c, dts, intr): `intr` holds the correction matrices
+    (RwDw = R_GYROtoIMU @ Dw, RaDa, R_w, R_a, Tg) and, per interval, the
+    mean uncorrected readings w_unc, a_unc (what Dw and Da multiply) that
+    the intrinsic columns of F need."""
     dtype = state.cov.dtype
     TgM = tg_matrix(state.calib_imu_tg)
-    RwDw = quat_to_rot(state.calib_imu_gq) @ dm_matrix(state.calib_imu_dw, model)
-    RaDa = quat_to_rot(state.calib_imu_aq) @ dm_matrix(state.calib_imu_da, model)
+    R_w, R_a = quat_to_rot(state.calib_imu_gq), quat_to_rot(state.calib_imu_aq)
+    RwDw = R_w @ dm_matrix(state.calib_imu_dw, model)
+    RaDa = R_a @ dm_matrix(state.calib_imu_da, model)
     dts = (imu_t[1:] - imu_t[:-1]).to(dtype)  # (n,)
-    a_c = (imu_a.to(dtype) - state.ba) @ RaDa.T
-    w_c = (imu_w.to(dtype) - state.bg - a_c @ TgM.T) @ RwDw.T
-    return w_c, a_c, dts, RwDw, RaDa, TgM
+    a_raw = imu_a.to(dtype) - state.ba
+    a_c = a_raw @ RaDa.T
+    w_u = imu_w.to(dtype) - state.bg - a_c @ TgM.T
+    w_c = w_u @ RwDw.T
+    intr = {"RwDw": RwDw, "RaDa": RaDa, "R_w": R_w, "R_a": R_a, "Tg": TgM,
+            "w_unc": 0.5 * (w_u[:-1] + w_u[1:]), "a_unc": 0.5 * (a_raw[:-1] + a_raw[1:])}
+    return w_c, a_c, dts, intr
 
 
 def _integrate_mean(state, dq, Jv, Jp, dts, gravity):
@@ -360,17 +447,17 @@ def propagate_mean_cov(
     """
     if integration not in INTEGRATIONS:
         raise ValueError(f"integration {integration!r} is not one of {INTEGRATIONS}")
-    if layout.imu_intr_dim:
-        raise NotImplementedError("IMU-intrinsic error states are not ported")
     dtype, device = state.cov.dtype, state.cov.device
     gravity = _gravity(gravity_mag, dtype, device)
-    w_c, a_c, dts, RwDw, RaDa, TgM = _corrected_readings(state, imu_t, imu_w, imu_a, layout.imu_model)
+    w_c, a_c, dts, intr = _corrected_readings(state, imu_t, imu_w, imu_a, layout.imu_model)
+    s = layout.imu_intr_dim
     has = dts > 0
     safe_dt = torch.where(has, dts, torch.ones_like(dts))
     w1, w2 = w_c[:-1], w_c[1:]
     a1, a2 = a_c[:-1], a_c[1:]
     w_hat = 0.5 * (w1 + w2)
     a_hat = 0.5 * (a1 + a2)
+    intr.update(w_k=w_hat, a_k=a_hat)
     xi = _xi_sum(w_hat, a_hat, safe_dt) if integration != INTEGRATION_DISCRETE else None
 
     # -- pass 1: mean via per-interval deltas + prefix composition -----
@@ -394,11 +481,11 @@ def propagate_mean_cov(
     # rk4 and analytical both take the ACI² F/G, as the reference does
     # (`Propagator.cpp:454-459`)
     if integration == INTEGRATION_DISCRETE:
-        F, G = _f_and_g_discrete(R_s, p_s, v_s, q_e, p_e, v_e, safe_dt, gravity, RwDw, RaDa, TgM)
+        F, G = _f_and_g_discrete(R_s, p_s, v_s, q_e, p_e, v_e, safe_dt, gravity, layout, intr)
     else:
-        F, G = _f_and_g_analytic(R_s, p_s, v_s, q_e, p_e, v_e, safe_dt, gravity, xi, RwDw, RaDa, TgM)
+        F, G = _f_and_g_analytic(R_s, p_s, v_s, q_e, p_e, v_e, safe_dt, gravity, xi, layout, intr)
     eye15 = torch.eye(15, dtype=dtype, device=device)
-    F = torch.where(has[:, None, None], F, eye15)
+    F = torch.where(has[:, None, None], F, torch.eye(15, 15 + s, dtype=dtype, device=device))
     G = torch.where(has[:, None, None], G, torch.zeros_like(G))
 
     # per-interval discrete noise: Qd_i = G diag(qc) G^T
@@ -413,21 +500,27 @@ def propagate_mean_cov(
     Qd = 0.5 * (Qd + Qd.transpose(-1, -2))
 
     # -- pass 3: log-depth composition of (Phi, Qd) ---------------------
-    # composing segment A (first) with B: Phi = B A ; Q = B Q_A B^T + Q_B
-    Phi = F
+    # Phi over the contiguous [imu(15) | intr(s)] block is
+    # [[Phi_ii, Phi_ik], [0, I]]; composing segment A (first) with B:
+    #   ii = B_ii A_ii ; ik = B_ii A_ik + B_ik ; Q = B_ii Q_A B_ii^T + Q_B
+    Phi, Phi_ik = F[:, :, :15], F[:, :, 15:]  # (n,15,15), (n,15,s)
     n = Phi.shape[0]
     pow2 = 1 << max(n - 1, 0).bit_length()
     if pow2 > n:
         pad = pow2 - n
         Phi = torch.cat([Phi, eye15.expand(pad, 15, 15)], dim=0)
+        Phi_ik = torch.cat([Phi_ik, torch.zeros((pad, 15, s), dtype=dtype, device=device)], dim=0)
         Qd = torch.cat([Qd, torch.zeros((pad, 15, 15), dtype=dtype, device=device)], dim=0)
     while Phi.shape[0] > 1:
         A, B = Phi[0::2], Phi[1::2]
         Qd = B @ Qd[0::2] @ B.transpose(-1, -2) + Qd[1::2]
+        if s:
+            Phi_ik = B @ Phi_ik[0::2] + Phi_ik[1::2]
         Phi = B @ A
     Qd = 0.5 * (Qd[0] + Qd[0].T)
+    phi = torch.cat([Phi[0], Phi_ik[0]], dim=1) if s else Phi[0]
 
-    cov = propagate_covariance(state.cov, Phi[0], Qd)
+    cov = propagate_covariance(state.cov, phi, Qd)
     new_state = state.replace(
         q=q, p=p, v=v, q_fej=q, p_fej=p, v_fej=v, cov=cov,
         time=imu_t[-1] if stamp_time is None else stamp_time,
@@ -441,7 +534,7 @@ def propagate_mean_only(state, imu_t, imu_w, imu_a, gravity_mag: float, imu_mode
     (`Propagator.cpp:140-267`), passes 0 and 1 of `propagate_mean_cov`.
     Returns (q, p, v) at imu_t[-1]."""
     gravity = _gravity(gravity_mag, state.cov.dtype, state.cov.device)
-    w_c, a_c, dts, _, _, _ = _corrected_readings(state, imu_t, imu_w, imu_a, imu_model)
+    w_c, a_c, dts, _ = _corrected_readings(state, imu_t, imu_w, imu_a, imu_model)
     dq, Jv, Jp = _rk4_deltas(w_c[:-1], a_c[:-1], w_c[1:], a_c[1:], dts)
     q_e, p_e, v_e, _, _, _ = _integrate_mean(state, dq, Jv, Jp, dts, gravity)
     return q_e[-1], p_e[-1], v_e[-1]

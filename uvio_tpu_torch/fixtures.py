@@ -6,8 +6,11 @@ captured and replayed it (seed 7, 12 clone slots, 25 SLAM slots of
 anchored inverse depth, 4 UWB anchors, 4 range sets and 40 MSCKF
 features per frame, 64-sample IMU windows): the state after 20 warm-up
 frames, the next 100 `FrameBundle`s, and per-frame results of the JAX
-replays in float64 and float32. `scripts/make_full_step_fixture.py`
-writes it.
+replays in float64 and float32. `fixtures/manager_ckpt_seed7.npz` is a
+checkpoint that `uvio_tpu`'s `UVioManager` saved after frame 20 of the
+same scenario run live (it loads with `UVioManager.load_checkpoint`),
+with the poses of a JAX manager that restored it and ran frames 21-30.
+`scripts/make_full_step_fixture.py` writes both.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 import numpy as np
 
 FULL_STEP_FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "full_step_seed7.npz")
+MANAGER_CKPT_FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "manager_ckpt_seed7.npz")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,3 +58,10 @@ def load_full_step_fixture(path: str = FULL_STEP_FIXTURE) -> FullStepFixture:
         snapshots=snaps,
         gt_p=arrays["gt_p"],
     )
+
+
+def load_manager_ckpt_reference(path: str = MANAGER_CKPT_FIXTURE) -> dict:
+    """The poses of the JAX manager that restored the checkpoint fixture:
+    `ref_t` (10,), `ref_q` (10,4), `ref_p` (10,3), after frames 21-30."""
+    with np.load(path) as z:
+        return {k: z[k] for k in ("ref_t", "ref_q", "ref_p")}

@@ -138,22 +138,30 @@ def bundle_from_numpy(fields, device=None, dtype=torch.float64) -> FrameBundle:
     """A `FrameBundle` on `device` (None: `default_device()`, the card or
     an error) from numpy arrays keyed by field name
     (a mapping, or a bundle of numpy leaves such as `uvio_tpu`'s). Times
-    stay float64, masks bool, indices int64; the rest takes `dtype`."""
+    stay float64, masks bool, indices int64; the rest takes `dtype`.
+
+    The leaves cross to the device together: packed into one float64
+    buffer (which holds every mask and index exactly), and on a CUDA device
+    copied from pinned memory without waiting for the device, so a caller
+    that reads nothing back keeps running ahead of it.
+    """
     device = resolve_device(device)
     get = fields.__getitem__ if isinstance(fields, dict) else lambda n: getattr(fields, n)
+    leaves = [np.asarray(get(n)) for n in FrameBundle._fields]
+    flat = torch.from_numpy(np.concatenate([a.ravel().astype(np.float64) for a in leaves]))
+    if device.type == "cuda":
+        flat = flat.pin_memory().to(device, non_blocking=True)
 
-    def conv(name):
+    def conv(name, x):
         if name in _TIME_FIELDS:
-            dt = torch.float64
-        elif name in _BOOL_FIELDS:
-            dt = torch.bool
-        elif name in _INT_FIELDS:
-            dt = torch.int64
-        else:
-            dt = dtype
-        return torch.as_tensor(np.asarray(get(name)), dtype=dt, device=device)
+            return x
+        if name in _BOOL_FIELDS:
+            return x != 0
+        return x.to(torch.int64 if name in _INT_FIELDS else dtype)
 
-    return FrameBundle(*(conv(n) for n in FrameBundle._fields))
+    sizes = [a.size for a in leaves]
+    parts = torch.split(flat, sizes)
+    return FrameBundle(*(conv(n, x.reshape(a.shape)) for n, x, a in zip(FrameBundle._fields, parts, leaves)))
 
 
 class FramePlan(NamedTuple):

@@ -4,12 +4,14 @@ Port of the image-pipeline part of `uvio_tpu/sim/simulator.py` (the
 reference's `ov_msckf/src/sim/Simulator`): a cubic SE(3) B-spline
 trajectory, a persistent 3D feature map, seeded IMU noise (white noise
 + random-walk biases) and rendered grayscale frames. It stands where a
-camera and an IMU would and is not part of the measured step, so it runs on
-the host CPU in float64. Its numpy RNG streams are `uvio_tpu`'s, so the
-same seed gives the same sensor data.
+camera, an IMU and a UWB radio would and is not part of the measured step,
+so it runs on the host CPU in float64. Its numpy RNG streams are
+`uvio_tpu`'s (one generator for the IMU, one per camera, one for UWB, one
+for the map), seeded and consumed in the same order, so the same seed
+gives the same sensor data.
 
-UWB ranges, `render_image_hard`, `get_next_cam` and
-`perturb_calibration` are not ported yet.
+`render_image_hard`, `perturb_calibration` and `load_tum_trajectory` are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -56,6 +58,11 @@ class SimParams:
     pts_per_spawn: int = 50
     seed: int = 10
     cameras: List[SimCamera] = dataclasses.field(default_factory=lambda: [SimCamera()])
+    # UWB simulation (empty = disabled). anchors: id -> (p_AinG, gamma, alpha)
+    uwb_anchors: dict = dataclasses.field(default_factory=dict)
+    uwb_freq: float = 20.0
+    sigma_range: float = 0.1
+    uwb_p_IinU: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(3))
     # true IMU intrinsics (None = perfect IMU), see `uvio_tpu.sim.SimParams`
     imu_model: int = 0  # 0 = kalibr, 1 = rpng (Dm triangle fill)
     imu_dw: Optional[np.ndarray] = None  # (6,)
@@ -132,9 +139,14 @@ class Simulator:
         self.t_end = float(times[-1]) - 2.0 * self.dt_ctrl
 
         self.rng_imu = np.random.default_rng(params.seed)
+        self.rng_cams = [
+            np.random.default_rng(params.seed + 1 + i) for i in range(len(params.cameras))
+        ]
         self.rng_map = np.random.default_rng(params.seed + 100)
+        self.rng_uwb = np.random.default_rng(params.seed + 50)
         self.cur_imu_t = self.t_start
         self.cur_cam_t = self.t_start
+        self.cur_uwb_t = self.t_start
         self.true_bg = np.zeros(3)
         self.true_ba = np.zeros(3)
 
@@ -233,19 +245,60 @@ class Simulator:
         )
         return t, wm, am
 
-    def render_image(self, t: float, cam_idx: int = 0, blob_sigma: float = 1.2):
-        """Synthetic grayscale frame: map points as Gaussian blobs with a
-        per-point deterministic appearance over a smooth background."""
-        cam = self.params.cameras[cam_idx]
-        st = self._state([t])
+    def _project(self, st, cam):
+        """All map points in `cam` at spline state `st`: (uv (N,2), ok (N,))
+        as numpy."""
         uv, ok = _project_map(
             torch.as_tensor(self.map_pts, dtype=_F64), st["R_GtoI"][0], st["p_IinG"][0],
             quat_to_rot(torch.as_tensor(cam.q_ItoC, dtype=_F64)),
             torch.as_tensor(cam.p_IinC, dtype=_F64), torch.as_tensor(cam.intrinsics, dtype=_F64),
             float(cam.width), float(cam.height), 0.1, 80.0,
         )
-        okn = ok.numpy()
-        uv = uv.numpy()[okn]
+        return uv.numpy(), ok.numpy()
+
+    def get_next_uwb(self):
+        """Noisy biased ranges to all configured anchors, (t, {id: range})
+        or None: y = (1+alpha) d + gamma + n  (uvio range model)."""
+        p = self.params
+        if not p.uwb_anchors:
+            return None
+        t = self.cur_uwb_t + 1.0 / p.uwb_freq
+        if t > self.t_end:
+            return None
+        self.cur_uwb_t = t
+        st = self._state([t])
+        p_UinG = st["p_IinG"][0].numpy() - st["R_GtoI"][0].numpy().T @ p.uwb_p_IinU
+        ranges = {}
+        for aid, (p_A, gamma, alpha) in p.uwb_anchors.items():
+            d = np.linalg.norm(np.asarray(p_A) - p_UinG)
+            ranges[aid] = (1 + alpha) * d + gamma + p.sigma_range * self.rng_uwb.standard_normal()
+        return t, ranges
+
+    def get_next_cam(self):
+        """Returns (t, [(ids, uvs) per camera]) or None.
+
+        uv noise sigma_pix; ids are persistent map indices (TrackSIM
+        semantics, `ov_core/src/track/TrackSIM.h:37-70`)."""
+        p = self.params
+        t = self.cur_cam_t + 1.0 / p.sim_freq_cam
+        if t > self.t_end:
+            return None
+        self.cur_cam_t = t
+        st = self._state([t])
+        out = []
+        for ci, cam in enumerate(p.cameras):
+            uv, ok = self._project(st, cam)
+            ids = np.nonzero(ok)[0][: p.num_pts]
+            uvs = uv[ids]
+            out.append((ids, uvs + p.sigma_pix * self.rng_cams[ci].standard_normal(uvs.shape)))
+        return t, out
+
+    def render_image(self, t: float, cam_idx: int = 0, blob_sigma: float = 1.2):
+        """Synthetic grayscale frame: map points as Gaussian blobs with a
+        per-point deterministic appearance over a smooth background."""
+        cam = self.params.cameras[cam_idx]
+        uv, okn = self._project(self._state([t]), cam)
+        uv = uv[okn]
         pt_ids = np.nonzero(okn)[0]
         H, W = cam.height, cam.width
         yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
