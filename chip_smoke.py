@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and run its raw-image -> pose step, its
-UWB + SLAM filter step and its live host loop (the managers) on one
-NVIDIA GPU: the quickest proof that `uvio_tpu_torch` works on the card.
+UWB + SLAM filter step, its live host loop (the managers) and its image
+trackers feeding that loop on one NVIDIA GPU: the quickest proof that
+`uvio_tpu_torch` works on the card.
 
     python3 chip_smoke.py
 
@@ -57,10 +58,10 @@ Phases, each printing one JSON line:
               next 100 bundles the fixture's (masks and indices exactly,
               floats to 1e-9), every info equals the JAX float64 replay's,
               final position within 1e-6 m. float32: the full step's float32
-              gates, with the host syncs of every frame counted; then 3 more
+              gates, with the host syncs of every frame counted; then 2 more
               runs for the loop's own time (host bundle build, step from
               dispatch to the one read-back, host bookkeeping, per frame over
-              frames 20-119, median of the 3). A second configuration takes
+              frames 20-119, the mean of the 2). A second configuration takes
               the branches that scenario never does (60 frames, seed 9, mono,
               no SLAM): 2 s at rest with static init and ZUPT (init fires,
               ZUPTs are accepted, the clone ring is rolled back on them),
@@ -70,9 +71,31 @@ Phases, each printing one JSON line:
               manager wrote (`fixtures/manager_ckpt_seed7.npz`) is loaded and
               run for 10 frames: poses within 1e-8 of the JAX manager's. It
               runs no hand kernel either.
+ 10. tracker — the image trackers, a second path to both kernels; frames are
+              rendered on the host before any clock starts. (a) The hard
+              rendered-image regression at full width: 187 frames of
+              `render_image_hard` (752x480, seed 9, 19 s with 5 s at rest) ->
+              `KLTTracker` (150 features, grid 6x8, HISTOGRAM) -> `VioManager`
+              (static init + ZUPT, float64) -> posyaw ATE; gates: >= 100
+              initialized frames, >= 15 tracks after frame 3, ATE < 0.15 m and
+              < 2.5 deg, cov_ok on every step, exactly 1 fast9 + 1 lk_track
+              launch per `feed`; printed: ms per `feed` (host clock to its one
+              read-back) beside the manager's ms per frame, and, from the
+              tracker alone on 12 of the frames, host syncs and kernel
+              launches per `feed`. (b) A stereo rig (baseline 0.11 m, seed 3)
+              through `StereoKLTTracker` into a two-camera `VioManager`, 30
+              frames: >= 10 stereo matches a frame, median |disparity| in
+              (2, 20) px, cov_ok, final position within 0.5 m, 1 fast9 + 2
+              lk_track launches per `feed`. (c) `DescriptorTracker`, 8 frames:
+              >= 15 tracks a frame, one track of length >= 6, 1 fast9 launch
+              per `feed`. (d) One `feed`'s device work through the kernels and
+              through their plain versions from the same tracker state and
+              RANSAC noise: FAST-9 0.0, LK masks equal and <= 3.4e-4 px, the
+              same detections.
 Then the kernel table (with each kernel's bound: the larger of its bytes
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted from
-this run's inputs), the `nvidia-smi` line, and the result line.
+this run's inputs; `launches` summed over the slice and the tracker runs,
+`launches_by_path` for each), the `nvidia-smi` line, and the result line.
 Needs no network; any failed check raises.
 """
 
@@ -788,9 +811,9 @@ def manager_bench_scenario(dev, card):
         log(rec32)
         raise RuntimeError("the live float32 loop failed its gates")
 
-    # ---- the loop's own time: 3 more float32 runs, frames 20-119 --------
+    # ---- the loop's own time: 2 more float32 runs, frames 20-119 --------
     reps = []
-    for _ in range(3):
+    for _ in range(2):
         _, r, wall = live32()
         rows = r["timings"][n_warm:]
         mean_ms = lambda key: 1e3 * sum(row[key] for row in rows) / len(rows)
@@ -918,12 +941,342 @@ def manager_jax_checkpoint(card):
         raise RuntimeError("the restored JAX checkpoint does not reproduce the JAX manager's poses")
 
 
+def kernel_launches(run):
+    """The number of kernel launches (of any kind) that run() makes, from
+    `torch.profiler`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    keys = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in keys)
+
+
+def _hard_sim():
+    """The simulator of the hard rendered-image regression."""
+    from uvio_tpu_torch.sim import SimParams, Simulator, circle_trajectory
+
+    return Simulator(SimParams(sim_freq_imu=200.0, sim_freq_cam=10.0, num_pts=90, seed=9),
+                     trajectory=circle_trajectory(duration=19.0, still_time=5.0))
+
+
+_RENDER_SIM = None  # a render worker's own simulator
+
+
+def _init_render_worker(root):
+    global _RENDER_SIM
+    sys.path.insert(0, root)
+    import torch
+
+    torch.set_num_threads(1)
+    _RENDER_SIM = _hard_sim()
+
+
+def _render_hard_frame(t):
+    return _RENDER_SIM.render_image_hard(t)
+
+
+def render_hard(workers=6):
+    """The scenario of the hard rendered-image regression, made on the
+    host before any clock starts: (camera, events, ground truth), events
+    being ("imu", (t, w, a)) and ("cam", (t, 752x480 hard frame)) in feeding
+    order, ground truth {t: (q_GtoI, p_IinG)}. A frame is a pure function
+    of its stamp, so `workers` processes render them side by side."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    sim = _hard_sim()
+    events, gt = [], {}
+    while sim.ok():
+        r = sim.get_next_imu()
+        if r is None:
+            break
+        events.append(("imu", r))
+        if sim.cur_cam_t + 1.0 / sim.params.sim_freq_cam <= r[0]:
+            tc = sim.cur_cam_t + 1.0 / sim.params.sim_freq_cam
+            sim.cur_cam_t = tc
+            events.append(("cam", tc))
+            g = sim.get_gt_state(tc)
+            gt[tc] = (g["q_GtoI"], g["p_IinG"])
+    root = os.path.dirname(os.path.abspath(__file__))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_init_render_worker, initargs=(root,)) as pool:
+        imgs = pool.map(_render_hard_frame, [ev for kind, ev in events if kind == "cam"], chunksize=4)
+        events = [(kind, (ev, next(imgs)) if kind == "cam" else ev) for kind, ev in events]
+    return sim.params.cameras[0], events, gt
+
+
+def hooked_cov_ok(mgr):
+    """A list that receives the `cov_ok` tensor of every step `mgr` runs."""
+    seen, full = [], mgr._jit_full
+
+    def hook(state, fields):
+        out = full(state, fields)
+        seen.append(out[1]["cov_ok"])
+        return out
+
+    mgr._jit_full = hook
+    return seen
+
+
+def tracker_mono_hard(K, card):
+    """Raw hard frames -> KLTTracker -> VioManager (static init + ZUPT) ->
+    posyaw ATE on the card, with the gates of the reference's regression;
+    then the tracker alone on 12 of the frames for its host syncs and
+    kernel launches per `feed`. Returns (launch counts, camera, frames)."""
+    import numpy as np
+    import torch
+
+    from uvio_tpu_torch.eval import ate
+    from uvio_tpu_torch.frontend.tracker import KLTTracker
+    from uvio_tpu_torch.init.static_init import StaticInitOptions
+    from uvio_tpu_torch.manager import CameraConfig, VioConfig, VioManager
+
+    t0 = time.perf_counter()
+    cam, events, gt = render_hard()
+    frames = [ev for kind, ev in events if kind == "cam"]
+    log({"phase": "tracker", "part": "render", "frames": len(frames), "resolution": "752x480",
+         "frame": "render_image_hard", "host_seconds": time.perf_counter() - t0})
+
+    def make_tracker():
+        return KLTTracker(cam.intrinsics, cam.model, num_features=150, grid=(6, 8), histeq="HISTOGRAM")
+
+    mgr = VioManager(VioConfig(
+        max_clones=11, max_msckf_in_update=40, sigma_pix=2.0, use_static_init=True, try_zupt=True,
+        zupt_max_disparity=0.0, init_options=StaticInitOptions(wait_for_jerk=False),
+        cameras=[CameraConfig(model=cam.model, intrinsics=cam.intrinsics, q_ItoC=cam.q_ItoC,
+                              p_IinC=cam.p_IinC)]))
+    cov_ok = hooked_cov_ok(mgr)
+    tracker = make_tracker()
+    if tracker.device != torch.device("cuda:0") or mgr.device != tracker.device:
+        raise RuntimeError(f"tracker on {tracker.device}, manager on {mgr.device}")
+    est = {"t": [], "q": [], "p": []}
+    n_tracks, feed_ms, mgr_ms, per_feed = [], [], [], []
+    K.reset_launch_counts()
+    for kind, ev in events:
+        if kind == "imu":
+            mgr.feed_imu(*ev)
+            continue
+        tc, img = ev
+        before = dict(K.launch_counts)
+        t0 = time.perf_counter()
+        ids, uvs = tracker.feed(tc, img)  # returns after its one read-back
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+        per_feed.append(tuple(K.launch_counts[k] - before[k] for k in ("fast9", "lk_track", "lk_level")))
+        n_tracks.append(len(ids))
+        mgr.feed_features(tc, [(ids, uvs)])
+        if mgr.is_initialized:
+            if mgr.last_timing:
+                mgr_ms.append(mgr.last_timing["total"] * 1e3)
+            q, p = mgr.get_pose()
+            est["t"].append(tc), est["q"].append(q), est["p"].append(p)
+    launches = dict(K.launch_counts)
+    t = np.asarray(est["t"])
+    res = ate(t, np.asarray(est["q"], np.float64), np.asarray(est["p"], np.float64), t,
+              np.asarray([gt[x][0] for x in est["t"]]), np.asarray([gt[x][1] for x in est["t"]]),
+              method="posyaw")
+    cov_ok_all = all(bool(x.item()) for x in cov_ok)
+    one_and_one = per_feed[0] == (1, 0, 0) and all(x == (1, 1, 0) for x in per_feed[1:])
+
+    # the tracker alone: host syncs (5 feeds) and kernel launches (5 feeds)
+    alone = make_tracker()
+    for tc, img in frames[100:102]:
+        alone.feed(tc, img)
+    with SyncCounter() as syncs:
+        for k, (tc, img) in enumerate(frames[102:107]):
+            alone.feed(tc, img)
+            syncs.on_frame(k, tc)
+    n_launch = kernel_launches(lambda: [alone.feed(tc, img) for tc, img in frames[107:112]])
+    rec = {"phase": "tracker", "part": "mono, hard frames -> KLTTracker -> VioManager (static init + ZUPT)",
+           "frames": len(frames), "initialized_frames": res["n"], "min_tracks_after_frame_3":
+           min(n_tracks[3:]), "ate_posyaw_rmse_pos_m": res["rmse_pos"], "ate_posyaw_rmse_ori_deg":
+           res["rmse_ori_deg"], "cov_ok_all": cov_ok_all, "steps": len(cov_ok),
+           "tracker_feed_ms_median": statistics.median(feed_ms[3:]),
+           "tracker_feed_ms_mean": statistics.fmean(feed_ms[3:]), "tracker_feed_ms_max": max(feed_ms[3:]),
+           "manager_frame_ms_median": statistics.median(mgr_ms), "manager_frame_ms_mean":
+           statistics.fmean(mgr_ms), "manager_dtype": mgr.cfg.dtype,
+           "fast9_lk_track_lk_level_launches_per_feed": sorted(set(per_feed[1:])),
+           "first_feed_launches": per_feed[0], "launches": launches,
+           "host_syncs_per_feed": syncs.per_frame, "sync_sources": syncs.sources,
+           "kernel_launches_per_feed": n_launch / 5, "card": card}
+    log(rec)
+    if not (res["n"] >= 100 and min(n_tracks[3:]) >= 15 and res["rmse_pos"] < 0.15
+            and res["rmse_ori_deg"] < 2.5 and cov_ok_all and len(cov_ok) >= 100 and one_and_one):
+        raise RuntimeError("the hard mono tracker run failed its gates")
+    return launches, cam, frames
+
+
+def tracker_stereo(K, card):
+    """A rendered stereo rig (baseline 0.11 m, seed 3) through
+    StereoKLTTracker into a two-camera VioManager initialised from ground
+    truth, 30 frames. Returns the launch counts."""
+    import numpy as np
+
+    from uvio_tpu_torch.frontend.stereo import StereoKLTTracker
+    from uvio_tpu_torch.manager import CameraConfig, VioConfig, VioManager
+    from uvio_tpu_torch.sim import SimCamera, SimParams, Simulator, circle_trajectory
+
+    cams = [SimCamera(), SimCamera(p_IinC=np.array([-0.11, 0.0, 0.0]))]
+    sim = Simulator(SimParams(sim_freq_cam=10.0, num_pts=60, seed=3, cameras=cams),
+                    trajectory=circle_trajectory(duration=10.0))
+    events = []
+    n = 0
+    while n < 30:
+        r = sim.get_next_imu()
+        events.append(("imu", r))
+        if sim.cur_cam_t + 1.0 / sim.params.sim_freq_cam <= r[0]:
+            tc = sim.cur_cam_t + 1.0 / sim.params.sim_freq_cam
+            sim.cur_cam_t = tc
+            events.append(("cam", (tc, sim.render_image(tc, cam_idx=0), sim.render_image(tc, cam_idx=1))))
+            n += 1
+    mgr = VioManager(VioConfig(
+        max_clones=11, max_msckf_in_update=40, sigma_pix=2.0,
+        cameras=[CameraConfig(model=c.model, intrinsics=c.intrinsics, q_ItoC=c.q_ItoC, p_IinC=c.p_IinC)
+                 for c in cams]))
+    g0 = sim.get_gt_state(sim.t_start)
+    mgr.initialize_with_gt(sim.t_start, g0["q_GtoI"], g0["p_IinG"], g0["v_IinG"], g0["bg"], g0["ba"])
+    cov_ok = hooked_cov_ok(mgr)
+    tracker = StereoKLTTracker(cams[0].intrinsics, cams[1].intrinsics, cams[0].model,
+                               num_features=120, grid=(6, 8))
+    matches, disparity, per_feed, feed_ms = [], [], [], []
+    K.reset_launch_counts()
+    for kind, ev in events:
+        if kind == "imu":
+            mgr.feed_imu(*ev)
+            continue
+        tc, left, right = ev
+        before = dict(K.launch_counts)
+        t0 = time.perf_counter()
+        (ids_l, uv_l), (ids_r, uv_r) = obs = tracker.feed(tc, left, right)
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+        per_feed.append(tuple(K.launch_counts[k] - before[k] for k in ("fast9", "lk_track", "lk_level")))
+        mgr.feed_features(tc, obs)
+        if len(per_feed) > 1:
+            at = dict(zip(ids_l, uv_l))
+            matches.append(len(ids_r))
+            disparity.append(float(np.median([abs(uv_r[j][0] - at[ids_r[j]][0]) for j in range(len(ids_r))])))
+    launches = dict(K.launch_counts)
+    p_err = float(np.linalg.norm(mgr.get_pose()[1] - sim.get_gt_state(tc)["p_IinG"]))
+    cov_ok_all = all(bool(x.item()) for x in cov_ok)
+    rec = {"phase": "tracker", "part": "stereo, StereoKLTTracker -> two-camera VioManager",
+           "frames": len(per_feed), "min_stereo_matches": min(matches), "median_abs_disparity_px_range":
+           [min(disparity), max(disparity)], "cov_ok_all": cov_ok_all, "steps": len(cov_ok),
+           "final_p_err_m": p_err, "tracker_feed_ms_median": statistics.median(feed_ms[3:]),
+           "fast9_lk_track_lk_level_launches_per_feed": sorted(set(per_feed[1:])),
+           "first_feed_launches": per_feed[0], "launches": launches, "card": card}
+    log(rec)
+    if not (min(matches) >= 10 and 2.0 < min(disparity) and max(disparity) < 20.0 and cov_ok_all
+            and len(cov_ok) == 30 and p_err < 0.5 and per_feed[0] == (1, 1, 0)
+            and all(x == (1, 2, 0) for x in per_feed[1:])):
+        raise RuntimeError("the stereo tracker run failed its gates")
+    return launches
+
+
+def tracker_descriptor(K, card):
+    """8 rendered frames (seed 3) through DescriptorTracker. Returns the
+    launch counts."""
+    from uvio_tpu_torch.frontend.descriptor import DescriptorTracker
+    from uvio_tpu_torch.sim import SimParams, Simulator, circle_trajectory
+
+    sim = Simulator(SimParams(sim_freq_cam=10.0, num_pts=60, seed=3),
+                    trajectory=circle_trajectory(duration=10.0))
+    cam = sim.params.cameras[0]
+    frames = []
+    for _ in range(8):
+        tc, _ = sim.get_next_cam()
+        frames.append((tc, sim.render_image(tc)))
+    tracker = DescriptorTracker(cam.intrinsics, cam.model, grid=(6, 8))
+    lengths, n_tracks, per_feed, feed_ms = {}, [], [], []
+    K.reset_launch_counts()
+    for tc, img in frames:
+        before = dict(K.launch_counts)
+        t0 = time.perf_counter()
+        ids, _ = tracker.feed(tc, img)
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+        per_feed.append(tuple(K.launch_counts[k] - before[k] for k in ("fast9", "lk_track", "lk_level")))
+        n_tracks.append(len(ids))
+        for fid in ids:
+            lengths[fid] = lengths.get(fid, 0) + 1
+    launches = dict(K.launch_counts)
+    rec = {"phase": "tracker", "part": "descriptor, DescriptorTracker", "frames": len(frames),
+           "min_tracks": min(n_tracks), "longest_track": max(lengths.values()),
+           "tracker_feed_ms_median": statistics.median(feed_ms[3:]),
+           "fast9_lk_track_lk_level_launches_per_feed": sorted(set(per_feed)), "launches": launches,
+           "card": card}
+    log(rec)
+    if not (min(n_tracks) >= 15 and max(lengths.values()) >= 6 and all(x == (1, 0, 0) for x in per_feed)):
+        raise RuntimeError("the descriptor tracker run failed its gates")
+    return launches
+
+
+def tracker_kernels_vs_plain(K, cam, frames, card):
+    """One `feed`'s device work at 752x480 through the kernels and through
+    their plain versions, from the same forced tracker state and with the
+    same RANSAC noise."""
+    import torch
+
+    from uvio_tpu_torch.frontend import tracker as T
+    from uvio_tpu_torch.frontend.klt import gumbel_noise
+
+    tr = T.KLTTracker(cam.intrinsics, cam.model, num_features=150, grid=(6, 8), histeq="HISTOGRAM")
+    for tc, img in frames[120:123]:
+        tr.feed(tc, img)
+    _, img = frames[123]
+    noise = gumbel_noise((64, 8, tr.cap), torch.Generator(device=tr.device).manual_seed(5), tr.device)
+
+    def device_work():
+        img_d, pyr = tr._preprocess(img)
+        uv, active = tr._table()
+        score = T.fast_score(img_d, tr.fast_thresh)
+        uv_new, ok, tracked = tr._track(pyr, uv, active, noise)
+        det_uv, det_ok = tr._detect(img_d, uv_new, tracked)
+        return score, uv_new, ok, tracked, det_uv, det_ok, active
+
+    K.reset_launch_counts()
+    with_kernels = device_work()
+    counts = dict(K.launch_counts)
+    kernel_fns = T.fast_score, T.lk_track
+    T.fast_score, T.lk_track = K.fast_score_ref, K.lk_track_ref
+    plain = device_work()
+    T.fast_score, T.lk_track = kernel_fns
+    if dict(K.launch_counts) != counts or counts != {"fast9": 2, "lk_track": 1, "lk_level": 0}:
+        raise RuntimeError(f"launch counts {counts} then {dict(K.launch_counts)}")
+    (s_k, uv_k, ok_k, tr_k, du_k, dk_k, active), (s_p, uv_p, ok_p, tr_p, du_p, dk_p, _) = with_kernels, plain
+    both = ok_k & ok_p & active
+    rec = {"phase": "tracker", "part": "kernels against plain versions inside one feed",
+           "fast9_max_abs_err": (s_k - s_p).abs().max().item(), "corners": int((s_k > 0).sum().item()),
+           "active": int(active.sum().item()), "lk_ok": int((ok_k & active).sum().item()),
+           "lk_ok_differs": int((ok_k != ok_p).sum().item()),
+           "lk_max_abs_err_px": (uv_k[both] - uv_p[both]).abs().max().item(),
+           "tracked_differs": int((tr_k != tr_p).sum().item()),
+           "detections_differ": int((dk_k != dk_p).sum().item() + (du_k[dk_k & dk_p] != du_p[dk_k & dk_p]).sum().item()),
+           "card": card}
+    log(rec)
+    if not (rec["fast9_max_abs_err"] == 0.0 and rec["lk_ok_differs"] == 0 and rec["lk_ok"] >= 50
+            and rec["lk_max_abs_err_px"] <= 3.4e-4 and rec["detections_differ"] == 0):
+        raise RuntimeError("the kernels disagree with their plain versions inside the tracker")
+
+
+def tracker_phase(K, card):
+    """The image trackers on the card (module docstring, phase 10):
+    {path: launch counts}."""
+    mono, cam, frames = tracker_mono_hard(K, card)
+    by_path = {"tracker_mono": mono, "tracker_stereo": tracker_stereo(K, card),
+               "tracker_descriptor": tracker_descriptor(K, card)}
+    tracker_kernels_vs_plain(K, cam, frames, card)
+    return by_path
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
@@ -1069,17 +1422,22 @@ def main():
 
     full_step_phase(dev, card)
     manager_phase(dev, card)
+    by_path = {"slice": launches, **tracker_phase(K, card)}
+    total = {k: sum(p[k] for p in by_path.values()) for k in launches}
+    for k in kernels:
+        kernels[k]["launches_by_path"] = {path: p[k] for path, p in by_path.items()}
 
+    log({"phase": "total", "seconds": time.perf_counter() - t_start})
     src = "uvio_tpu_torch/csrc/"
     log({"kernels": [
         {"name": "fast9", "route": "cuda", "source": src + "fast9.cu",
-         "replaces": "uvio_tpu/frontend/pallas_kernels.py:78", "launches": launches["fast9"],
+         "replaces": "uvio_tpu/frontend/pallas_kernels.py:78", "launches": total["fast9"],
          **kernels["fast9"]},
         {"name": "lk_level", "route": "cuda", "source": src + "lk_level.cu",
-         "replaces": "uvio_tpu/frontend/pallas_kernels.py:617", "launches": launches["lk_level"],
+         "replaces": "uvio_tpu/frontend/pallas_kernels.py:617", "launches": total["lk_level"],
          **kernels["lk_level"]},
         {"name": "lk_track", "route": "cuda", "source": src + "lk_level.cu",
-         "replaces": "uvio_tpu/frontend/pallas_kernels.py:617", "launches": launches["lk_track"],
+         "replaces": "uvio_tpu/frontend/pallas_kernels.py:617", "launches": total["lk_track"],
          **kernels["lk_track"]},
     ]})
     print(smi, flush=True)

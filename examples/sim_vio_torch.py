@@ -4,11 +4,13 @@
 Generates seeded IMU, feature tracks and (with --uwb) ranges from the
 port's B-spline simulator, runs the port's `VioManager` or `UVioManager`
 initialized from groundtruth, and reports the absolute trajectory error
-against the exact simulated trajectory (no alignment: the estimate starts
-in the simulator's frame).
+(`uvio_tpu_torch.eval.ate`) against the exact simulated trajectory (no
+alignment: the estimate starts in the simulator's frame). With --klt the
+tracks come from the port's KLT frontend on rendered frames instead of
+the simulator's tracker; --record writes both trajectories in TUM format.
 
 Usage:
-    PYTHONPATH=. python examples/sim_vio_torch.py [--duration 30] [--cpu]
+    PYTHONPATH=. python examples/sim_vio_torch.py [--duration 30] [--cpu] [--klt] [--record DIR]
 
 It runs on cuda:0 unless --cpu is given.
 """
@@ -28,14 +30,20 @@ def main():
     ap.add_argument("--num-pts", type=int, default=50)
     ap.add_argument("--max-slam", type=int, default=0)
     ap.add_argument("--uwb", action="store_true", help="UWB-aided (UVIO) mode")
+    ap.add_argument(
+        "--klt", action="store_true",
+        help="run the KLT frontend on rendered frames instead of the sim tracker",
+    )
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--record", type=str, default=None,
+                    help="directory to write est.txt/gt.txt TUM trajectories")
     args = ap.parse_args()
 
     import numpy as np
     import torch
 
+    from uvio_tpu_torch.eval import ate, save_tum
     from uvio_tpu_torch.manager import CameraConfig, VioConfig, VioManager
-    from uvio_tpu_torch.math import quat_to_rot
     from uvio_tpu_torch.sim import SimParams, Simulator, circle_trajectory
 
     # the filter's float32 products must be full precision (README "Numerics")
@@ -73,7 +81,14 @@ def main():
     gt0 = sim.get_gt_state(sim.t_start)
     mgr.initialize_with_gt(sim.t_start, gt0["q_GtoI"], gt0["p_IinG"], gt0["v_IinG"], gt0["bg"], gt0["ba"])
 
-    est_q, est_p, gt_q, gt_p = [], [], [], []
+    tracker = None
+    if args.klt:
+        from uvio_tpu_torch.frontend.tracker import KLTTracker
+
+        tracker = KLTTracker(cam.intrinsics, cam.model, num_features=120, grid=(6, 8),
+                             device="cpu" if args.cpu else None)
+
+    est_t, est_q, est_p, gt_q, gt_p = [], [], [], [], []
     t_wall0 = time.time()
     tc = sim.t_start
     while sim.ok() and tc - sim.t_start <= args.duration:
@@ -90,24 +105,31 @@ def main():
             rc = sim.get_next_cam()
             if rc is None:
                 break
-            tc = rc[0]
-            mgr.feed_features(*rc)
+            tc, obs = rc
+            if tracker is not None:
+                obs = [tracker.feed(tc, sim.render_image(tc))]
+            mgr.feed_features(tc, obs)
             q, p = mgr.get_pose()
             g = sim.get_gt_state(tc)
-            est_q.append(q), est_p.append(p), gt_q.append(g["q_GtoI"]), gt_p.append(g["p_IinG"])
+            est_t.append(tc), est_q.append(q), est_p.append(p)
+            gt_q.append(g["q_GtoI"]), gt_p.append(g["p_IinG"])
             if len(est_p) % 50 == 0:
                 ep = np.linalg.norm(est_p[-1] - gt_p[-1])
                 print(f"t={tc - sim.t_start:6.2f}s frames={len(est_p)} |p_err|={ep:.3f} m")
     wall = time.time() - t_wall0
 
     frames = len(est_p)
-    rmse_pos = float(np.sqrt(np.mean(np.sum((np.asarray(est_p, np.float64) - np.asarray(gt_p)) ** 2, axis=1))))
-    # orientation error angle of R_est R_gt^T per frame
-    R_e = quat_to_rot(torch.as_tensor(np.asarray(est_q, np.float64)))
-    R_g = quat_to_rot(torch.as_tensor(np.asarray(gt_q, np.float64)))
-    cos = ((R_e @ R_g.transpose(-1, -2)).diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0) / 2.0
-    ang = torch.rad2deg(torch.acos(cos.clamp(-1.0, 1.0)))
-    rmse_ori = float(torch.sqrt((ang**2).mean()))
+    est_t, est_q, est_p = np.asarray(est_t), np.asarray(est_q, np.float64), np.asarray(est_p, np.float64)
+    gt_q, gt_p = np.asarray(gt_q), np.asarray(gt_p)
+    if args.record:
+        import os
+
+        os.makedirs(args.record, exist_ok=True)
+        save_tum(os.path.join(args.record, "est.txt"), est_t, est_q, est_p)
+        save_tum(os.path.join(args.record, "gt.txt"), est_t, gt_q, gt_p)
+        print(f"recorded TUM trajectories to {args.record}/")
+    res = ate(est_t, est_q, est_p, est_t, gt_q, gt_p, method="none")
+    rmse_pos, rmse_ori = res["rmse_pos"], res["rmse_ori_deg"]
     print(f"\nframes={frames} wall={wall:.1f}s ({frames / wall:.1f} fps) on {mgr.device}, {args.dtype}")
     print(f"ATE  rmse_pos = {rmse_pos:.4f} m   rmse_ori = {rmse_ori:.3f} deg")
     return rmse_pos < 1.0

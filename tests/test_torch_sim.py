@@ -3,7 +3,10 @@ derivatives in the port, `jax.jacfwd` in `uvio_tpu`) agree to 1e-9; the
 same seed gives the same IMU stream and feature map; rendered frames
 agree to 1e-3 (float32 output of float64 blob sums); the camera tracks
 (`get_next_cam`) carry the same ids with uv to 1e-9 and the UWB ranges
-(`get_next_uwb`) agree to 1e-9 over 30 frames, mono and stereo."""
+(`get_next_uwb`) agree to 1e-9 over 30 frames, mono and stereo; the hard
+renderer's frames agree to 1e-3 with each option on and off;
+`perturb_calibration` with the same seed gives the same configuration to
+1e-12; `load_tum_trajectory` reads a written file."""
 
 import numpy as np
 import pytest
@@ -127,3 +130,95 @@ def test_cam_and_uwb_streams_match(stereo):
             frames += 1
     assert sets >= 55
     assert TS(TP(seed=7), trajectory=t_traj(duration=4.0)).get_next_uwb() is None  # no anchors
+
+
+HARD_OPTIONS = [
+    dict(),
+    dict(motion_blur=0.0),
+    dict(exposure=False),
+    dict(occlusion=False),
+    dict(motion_blur=0.0, exposure=False, occlusion=False),
+    dict(blob_sigma=2.0, motion_blur=0.02),
+]
+
+
+@pytest.mark.parametrize("opts", HARD_OPTIONS, ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()) or "default")
+def test_render_image_hard_matches(sims, opts):
+    """The adversarial frame (background texture, motion blur, exposure
+    ramp, occluder with its seeded pseudo-corners) at 3 stamps: float32
+    frames within 1e-3 grey levels of `uvio_tpu`'s."""
+    js, ts = sims
+    for dt in (0.3, 2.05, 3.6):
+        a, b = js.render_image_hard(js.t_start + dt, **opts), ts.render_image_hard(ts.t_start + dt, **opts)
+        assert a.shape == b.shape == (240, 376) and b.dtype == np.float32
+        assert np.abs(a - b).max() <= 1e-3
+        assert 0.0 <= b.min() and b.max() <= 255.0
+    if opts.get("occlusion", True) and not opts.get("exposure", True):
+        assert (b == 25.0).sum() > 1000 and (b == 230.0).sum() >= 9  # occluder and its corners
+
+
+def test_render_image_hard_options_change_the_frame(sims):
+    _, ts = sims
+    t = ts.t_start + 1.0
+    base = ts.render_image_hard(t)
+    for opts in HARD_OPTIONS[1:4]:
+        assert np.abs(ts.render_image_hard(t, **opts) - base).max() > 1.0, opts
+    assert np.abs(base - ts.render_image(t)).max() > 10.0
+
+
+@pytest.mark.parametrize("toggles", [
+    dict(),
+    dict(calib_imu_intrinsics=True),
+    dict(calib_imu_intrinsics=True, imu_model=1, calib_imu_g_sensitivity=True),
+    dict(calib_imu_intrinsics=True, calib_imu_g_sensitivity=True, camimu_dt=0.01,
+         imu_dw=np.array([1.01, 0.002, -0.003, 0.99, 0.001, 1.02]),
+         imu_tg=np.linspace(-1e-3, 1e-3, 9), imu_gq=np.array([0.01, -0.02, 0.005, 1.0]) / np.sqrt(1.000525)),
+], ids=["cameras", "kalibr", "rpng+tg", "seeded"])
+def test_perturb_calibration_matches(toggles):
+    from uvio_tpu.manager import CameraConfig as JCam
+    from uvio_tpu.manager import VioConfig as JCfg
+    from uvio_tpu.sim import perturb_calibration as j_perturb
+
+    from uvio_tpu_torch.manager import CameraConfig as TCam
+    from uvio_tpu_torch.manager import VioConfig as TCfg
+    from uvio_tpu_torch.sim import perturb_calibration as t_perturb
+
+    def cams(C):
+        return [C(), C(p_IinC=np.array([-0.11, 0.0, 0.0]), q_ItoC=np.array([0.0, 0.01, 0.0, 1.0]) / np.sqrt(1.0001),
+                   intrinsics=np.array([457.0, 456.0, 379.0, 255.0, -0.28, 0.07, 2e-4, 2e-5]))]
+
+    for seed in (0, 5):
+        a = j_perturb(JCfg(cameras=cams(JCam), **toggles), seed=seed)
+        b = t_perturb(TCfg(cameras=cams(TCam), device="cpu", **toggles), seed=seed)
+        np.testing.assert_allclose(b.camimu_dt, a.camimu_dt, rtol=0, atol=1e-12)
+        assert abs(b.camimu_dt - toggles.get("camimu_dt", 0.0)) > 1e-5
+        for ca, cb in zip(a.cameras, b.cameras):
+            for k in ("intrinsics", "q_ItoC", "p_IinC"):
+                np.testing.assert_allclose(getattr(cb, k), getattr(ca, k), rtol=0, atol=1e-12, err_msg=k)
+        for k in ("imu_dw", "imu_da", "imu_tg", "imu_gq", "imu_aq"):
+            va, vb = getattr(a, k), getattr(b, k)
+            assert (va is None) == (vb is None), k
+            if va is not None:
+                np.testing.assert_allclose(vb, va, rtol=0, atol=1e-12, err_msg=k)
+        assert b.device == "cpu" and len(b.cameras) == 2
+
+
+def test_load_tum_trajectory(tmp_path):
+    """A written `t x y z qx qy qz qw` file: the same arrays as `uvio_tpu`'s
+    loader, quaternions normalized, and a simulator runs on it."""
+    from uvio_tpu.sim import load_tum_trajectory as j_load
+
+    from uvio_tpu_torch.sim import SimParams, Simulator, circle_trajectory, load_tum_trajectory
+
+    t, q, p = circle_trajectory(duration=4.0)
+    path = tmp_path / "traj.txt"
+    with open(path, "w") as f:
+        f.write("# timestamp tx ty tz qx qy qz qw\n")
+        for i in range(len(t)):
+            f.write(" ".join(f"{x:.12f}" for x in (t[i], *p[i], *(2.0 * q[i]))) + "\n")
+    a, b = j_load(str(path)), load_tum_trajectory(str(path))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(y, x)
+    np.testing.assert_allclose(b[1], q, atol=1e-11)  # the factor 2 is normalized away
+    sim = Simulator(SimParams(seed=1), trajectory=b)
+    assert sim.get_next_imu() is not None and sim.ok()

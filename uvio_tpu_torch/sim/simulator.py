@@ -9,9 +9,6 @@ so it runs on the host CPU in float64. Its numpy RNG streams are
 `uvio_tpu`'s (one generator for the IMU, one per camera, one for UWB, one
 for the map), seeded and consumed in the same order, so the same seed
 gives the same sensor data.
-
-`render_image_hard`, `perturb_calibration` and `load_tum_trajectory` are
-not ported yet.
 """
 
 from __future__ import annotations
@@ -108,6 +105,17 @@ def circle_trajectory(
     R_ItoG = Rsp.from_euler("zyx", np.stack([yaw, pitch, roll], axis=1)).as_matrix()
     q_GtoI = rot_to_quat(torch.as_tensor(np.transpose(R_ItoG, (0, 2, 1)), dtype=_F64)).numpy()
     return t, q_GtoI, p
+
+
+def load_tum_trajectory(path: str):
+    """Load `timestamp tx ty tz qx qy qz qw` (JPL q_GtoI, as the
+    reference's `DatasetReader::load_simulated_trajectory`)."""
+    data = np.loadtxt(path, comments="#")
+    t = data[:, 0]
+    p = data[:, 1:4]
+    q = data[:, 4:8]
+    q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    return t, q, p
 
 
 def _project_map(pts_G, R_GtoI, p_IinG, R_ItoC, p_IinC, intrinsics, width, height, min_d, max_d):
@@ -317,3 +325,124 @@ class Simulator:
             gy = np.exp(-((np.arange(y0, y1) - v) ** 2) / (2 * sy**2))
             img[y0:y1, x0:x1] += amp * gy[:, None] * gx[None, :]
         return np.clip(img, 0, 255).astype(np.float32)
+
+    def render_image_hard(
+        self,
+        t: float,
+        cam_idx: int = 0,
+        blob_sigma: float = 1.2,
+        motion_blur: float = 0.012,
+        exposure: bool = True,
+        occlusion: bool = True,
+    ):
+        """Adversarial rendered frame for frontend robustness testing
+        (the stand-in for a real-image dataset regression):
+
+        - rotation-consistent far background texture (sampled from a
+          procedural function of the per-pixel viewing DIRECTION, so it
+          moves correctly under rotation and has no translation
+          parallax: distant clutter that tempts the detector),
+        - motion blur: average of renders at t and t +/- motion_blur,
+        - exposure ramp: global gain/bias cycling over time (defeats
+          trackers without histogram equalization, `TrackKLT.cpp:56-67`),
+        - occlusion: a moving dark foreground rectangle with its own
+          bright pseudo-corners (features on it violate epipolar
+          geometry and must die by RANSAC/track loss).
+        """
+        cam = self.params.cameras[cam_idx]
+        H, W = cam.height, cam.width
+        fx, fy, cx, cy = np.asarray(cam.intrinsics[:4])
+        R_ItoC = _rot_np(cam.q_ItoC)
+
+        def one(tt):
+            img = self.render_image(tt, cam_idx, blob_sigma)
+            R_GtoC = R_ItoC @ self._state([tt])["R_GtoI"][0].numpy()
+            # viewing directions in the GLOBAL frame (pinhole approx:
+            # the background is texture, not geometry)
+            uu, vv = np.meshgrid((np.arange(W) - cx) / fx, (np.arange(H) - cy) / fy)
+            d = np.stack([uu, vv, np.ones_like(uu)], axis=-1) @ R_GtoC  # rows: d^T R = (R^T d)^T
+            n = d / np.linalg.norm(d, axis=-1, keepdims=True)
+            tex = (
+                18.0 * np.sin(9.0 * n[..., 0] + 5.0 * n[..., 2])
+                + 14.0 * np.sin(11.0 * n[..., 1] - 3.0 * n[..., 0])
+                + 10.0 * np.sin(7.0 * (n[..., 0] + n[..., 1] + 1.3 * n[..., 2]))
+            )
+            return img + tex
+
+        if motion_blur > 0:
+            img = (one(t - motion_blur) + one(t) + one(t + motion_blur)) / 3.0
+        else:
+            img = one(t)
+
+        if occlusion:
+            # foreground occluder sweeping horizontally, ~1/5 of the image
+            xc = int(W * (0.5 + 0.38 * np.sin(0.7 * (t - self.t_start))))
+            x0, x1 = max(0, xc - W // 10), min(W, xc + W // 10)
+            y0, y1 = H // 4, H - H // 4
+            img[y0:y1, x0:x1] = 25.0
+            # pseudo-corners on the occluder (move with IT, not the world)
+            rng = np.random.default_rng(99)
+            for ry, rx in rng.uniform(0.1, 0.9, (6, 2)):
+                oy = int(y0 + ry * (y1 - y0))
+                ox = int(x0 + rx * (x1 - x0))
+                img[max(0, oy - 1) : oy + 2, max(0, ox - 1) : ox + 2] = 230.0
+
+        if exposure:
+            g = 1.0 + 0.45 * np.sin(0.9 * (t - self.t_start))
+            img = img * g + 12.0 * np.sin(1.3 * (t - self.t_start))
+
+        return np.clip(img, 0, 255).astype(np.float32)
+
+
+def perturb_calibration(cfg, seed: int = 0):
+    """Return a copy of a VioConfig with its calibration states perturbed
+    by the reference's std-devs (`Simulator::perturb_parameters`,
+    `Simulator.cpp:209-266`): dt 0.01 s; cam focal/center 1.0 px,
+    distortion 0.005; cam extrinsic rotation 0.001 rad / position
+    0.01 m; IMU Dw/Da 0.004, frame rotation 0.002 rad, Tg 0.004. IMU
+    blocks only when the matching calib toggle is on, exactly like the
+    reference. The numpy generator is drawn from in `uvio_tpu`'s order,
+    so the same seed gives the same perturbation.
+
+    Use for calibration-error experiments: run the simulator with true
+    parameters and the estimator with `perturb_calibration(cfg)`.
+    """
+    from ..math import exp_so3, quat_multiply
+    from ..types.state import dm_identity
+
+    rng = np.random.default_rng(seed)
+
+    def rotate_quat(q, std):
+        dq = rot_to_quat(exp_so3(torch.as_tensor(std * rng.standard_normal(3), dtype=_F64)))
+        return quat_multiply(dq, torch.as_tensor(np.asarray(q, float), dtype=_F64)).numpy()
+
+    new_cams = []
+    dt = float(getattr(cfg, "camimu_dt", 0.0)) + 0.01 * rng.standard_normal()
+    for cam in cfg.cameras:
+        intr = np.asarray(cam.intrinsics, float).copy()
+        intr[:4] += 1.0 * rng.standard_normal(4)
+        intr[4:8] += 0.005 * rng.standard_normal(4)
+        q = rotate_quat(cam.q_ItoC, 0.001)
+        p = np.asarray(cam.p_IinC, float) + 0.01 * rng.standard_normal(3)
+        new_cams.append(dataclasses.replace(cam, intrinsics=intr, q_ItoC=q, p_IinC=p))
+
+    out = dataclasses.replace(cfg, cameras=new_cams, camimu_dt=dt)
+    if getattr(cfg, "calib_imu_intrinsics", False):
+        dw = np.asarray(cfg.imu_dw if cfg.imu_dw is not None else dm_identity(cfg.imu_model), float)
+        da = np.asarray(cfg.imu_da if cfg.imu_da is not None else dm_identity(cfg.imu_model), float)
+        out = dataclasses.replace(
+            out,
+            imu_dw=dw + 0.004 * rng.standard_normal(6),
+            imu_da=da + 0.004 * rng.standard_normal(6),
+        )
+        q0 = np.array([0.0, 0.0, 0.0, 1.0])
+        if cfg.imu_model == 0:  # kalibr: gyro frame
+            gq = cfg.imu_gq if cfg.imu_gq is not None else q0
+            out = dataclasses.replace(out, imu_gq=rotate_quat(gq, 0.002))
+        else:  # rpng: acc frame
+            aq = cfg.imu_aq if cfg.imu_aq is not None else q0
+            out = dataclasses.replace(out, imu_aq=rotate_quat(aq, 0.002))
+    if getattr(cfg, "calib_imu_g_sensitivity", False):
+        tg = np.asarray(cfg.imu_tg if cfg.imu_tg is not None else np.zeros(9), float)
+        out = dataclasses.replace(out, imu_tg=tg + 0.004 * rng.standard_normal(9))
+    return out
