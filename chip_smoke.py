@@ -36,9 +36,10 @@ Phases, each printing one JSON line:
   7. slice  — the simulator renders 60 frames (752x480, seed 9, 200 Hz
               IMU, 10 Hz camera); the fused step runs each on cuda:0 with
               a float32 state; gates of tests/test_fused_vio.py; exactly 1
-              fast9 and 1 lk_track launch per step; median per-frame time
-              over 3 warm repetitions; the two kernels' device time by name
-              under `torch.profiler` over 5 steps.
+              fast9 and 1 lk_track launch per step and no host sync inside
+              one; median per-frame time over 2 warm repetitions; the two
+              kernels' device time by name under `torch.profiler` over 5
+              steps.
   8. full_step — `pipeline.full_filter_step` replays the 100 frames of the
               committed fixture (`bench.py`'s scenario: seed 7, 25 SLAM
               slots, 4 UWB anchors) on cuda:0. float64: every info equal
@@ -47,9 +48,9 @@ Phases, each printing one JSON line:
               float64 time): cov_ok on every frame, final position within
               2 cm of the JAX float32 replay's, RMS error against ground
               truth at most the JAX one's + 2 cm, accepted ranges within 2%,
-              all 25 SLAM slots full at the end; median per-frame time over
-              3 warm repetitions; host syncs over one whole warm replay,
-              with how many frames took each branch of the plan. It runs no hand
+              all 25 SLAM slots full at the end; host syncs over that whole
+              replay, with how many frames took each branch of the plan;
+              per-frame time of 1 more, warm, replay. It runs no hand
               kernel (its inputs are features, not images).
   9. manager — the live host loop, `UVioManager` fed by the port's
               simulator from the first IMU sample (`eval/capture.py`:
@@ -58,10 +59,10 @@ Phases, each printing one JSON line:
               next 100 bundles the fixture's (masks and indices exactly,
               floats to 1e-9), every info equals the JAX float64 replay's,
               final position within 1e-6 m. float32: the full step's float32
-              gates, with the host syncs of every frame counted; then 2 more
-              runs for the loop's own time (host bundle build, step from
-              dispatch to the one read-back, host bookkeeping, per frame over
-              frames 20-119, the mean of the 2). A second configuration takes
+              gates, with the host syncs of every frame counted and the
+              loop's own time (host bundle build, step from dispatch to the
+              one read-back, host bookkeeping, per frame over frames
+              20-119). A second configuration takes
               the branches that scenario never does (60 frames, seed 9, mono,
               no SLAM): 2 s at rest with static init and ZUPT (init fires,
               ZUPTs are accepted, the clone ring is rolled back on them),
@@ -81,8 +82,8 @@ Phases, each printing one JSON line:
               < 2.5 deg, cov_ok on every step, exactly 1 fast9 + 1 lk_track
               launch per `feed`; printed: ms per `feed` (host clock to its one
               read-back) beside the manager's ms per frame, and, from the
-              tracker alone on 12 of the frames, host syncs and kernel
-              launches per `feed`. (b) A stereo rig (baseline 0.11 m, seed 3)
+              tracker alone on 12 of the frames, host syncs (exactly 1, the
+              read-back) and kernel launches per `feed`. (b) A stereo rig (baseline 0.11 m, seed 3)
               through `StereoKLTTracker` into a two-camera `VioManager`, 30
               frames: >= 10 stereo matches a frame, median |disparity| in
               (2, 20) px, cov_ok, final position within 0.5 m, 1 fast9 + 2
@@ -92,11 +93,42 @@ Phases, each printing one JSON line:
               through their plain versions from the same tracker state and
               RANSAC noise: FAST-9 0.0, LK masks equal and <= 3.4e-4 px, the
               same detections.
+ 11. init   — the in-motion initializer and the dataset entry point. (a) The
+              scenario of tests/test_dynamic_init.py's end-to-end test
+              (seed 11, circle_trajectory(24 s, lap 8 s), 11 clones, 15 SLAM
+              slots, sigma_pix 1, static + dynamic init, float64) through
+              `VioManager` on the card: dynamic init fires < 5 s after the
+              start, posyaw ATE < 0.25 m over the 12 s after it, cov_ok on
+              every step, no solver attempt longer than 30 s (the first
+              pays the process's first use of the solver's kernels and
+              libraries), and the last window solved again, warm, at its
+              own 10 and at the vendored configs' 50 Gauss-Newton steps in
+              <= 6 s each; printed: the solver's attempts, ms per
+              `solve_dynamic_init` call to its read-back, the warm ms, and
+              kernel and CUDA graph launches and device kernels per call
+              (profiler). (b) `run_euroc` on an ASL dataset that
+              `write_synthetic_dataset` renders (seed 13, 16 s with 5 s at
+              rest, 90 points, 10 Hz; the estimator settings of
+              tests/test_euroc_reader.py): >= 25 poses, posyaw ATE < 0.5 m,
+              exactly 1 fast9 + 1 lk_track launch per `feed` after the first
+              (1 + 0 on it), the native host library built.
+ 12. streams — the vendored UWB stream (`data/streams/uwb`, 450 frames)
+              through the port's `load_config` -> `UVioManager` on the card,
+              seeded from its `init.txt`, under the gates of the reference's
+              regression against the C++ estimator's own output: SE(3) ATE
+              <= `ref_est.txt`'s, final anchor error <= `anchors_est.txt`'s;
+              cov_ok on every step; ms per frame (`last_timing`).
 Then the kernel table (with each kernel's bound: the larger of its bytes
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted from
-this run's inputs; `launches` summed over the slice and the tracker runs,
-`launches_by_path` for each), the `nvidia-smi` line, and the result line.
-Needs no network; any failed check raises.
+this run's inputs; `launches` summed over the slice, the tracker runs and
+`run_euroc`, `launches_by_path` for each), the `nvidia-smi` line, and the
+result line. Needs no network; any failed check raises.
+
+    python3 chip_smoke.py --phases init,streams
+
+runs only the named phases (comma list of kernels, slice, full_step,
+manager, tracker, init, streams; default all): the card and build phases
+always run, and the kernel table is printed only with `kernels`.
 """
 
 import json
@@ -588,22 +620,23 @@ def full_step_phase(dev, card):
     import torch
 
     def replay(dtype):
-        """(run, fx, step, plans, bundles, state0): run() replays every
-        frame, synchronizes and returns per-frame device results."""
+        """(run, fx): run() replays every frame, synchronizes (unless told
+        not to) and returns per-frame device results."""
         fx, step, plans, bundles, st0 = full_step_inputs(dev, dtype)
 
-        def run():
+        def run(sync=True):
             st, out = st0, []
             for fb, plan in zip(bundles, plans):
                 st, info = step(st, fb, plan)
                 out.append((st.p, st.cov.trace(), info))
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
             return st, out
 
-        return run, fx, step, plans, bundles, st0
+        return run, fx, plans
 
     # ---- float64: the same decisions as the JAX float64 replay --------
-    run64, fx, _, _, _, _ = replay(torch.float64)
+    run64, fx, _ = replay(torch.float64)
     n = len(fx.bundles)
     st, out = run64()
     ref = fx.replays["f64"]
@@ -627,9 +660,17 @@ def full_step_phase(dev, card):
             log(b)
         raise RuntimeError("full_step float64 disagrees with the JAX float64 replay")
 
-    # ---- float32: the bench precision, held to the JAX float32 replay -
-    run32, fx, step, plans, bundles, st0 = replay(torch.float32)
-    st, out = run32()
+    # ---- float32: the bench precision, held to the JAX float32 replay; the
+    # same replay counts what waits for the host inside the steps: nothing
+    # should, over a whole replay, which takes every branch of the plan
+    run32, fx, plans = replay(torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        st, out = run32(sync=False)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
     ref = fx.replays["f32"]
     p = np.stack([o[0].cpu().numpy() for o in out]).astype(np.float64)
     cov_ok = [bool(o[2]["cov_ok"].item()) for o in out]
@@ -647,17 +688,6 @@ def full_step_phase(dev, card):
         log(rec32)
         raise RuntimeError("full_step float32 failed its gates")
 
-    # nothing inside a step should wait for the host; count what does over
-    # one whole warm replay, which takes every branch of the plan
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        st = st0
-        for fb, plan in zip(bundles, plans):
-            st, _ = step(st, fb, plan)
-    torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
     branches = {"uwb_rows_run": sum(sum(p.uwb_rows) for p in plans),
                 "uwb_rows_skipped": sum(len(p.uwb_rows) - sum(p.uwb_rows) for p in plans),
                 "slam_init_frames": sum(p.slam_init for p in plans),
@@ -665,7 +695,7 @@ def full_step_phase(dev, card):
                 "slam_init_and_marg_frames": sum(p.slam_init and p.marg for p in plans),
                 "zupt_try_frames": sum(p.zupt_try for p in plans)}
     reps = []
-    for _ in range(3):
+    for _ in range(1):
         t0 = time.perf_counter()
         run32()
         reps.append((time.perf_counter() - t0) / n * 1e3)
@@ -789,7 +819,7 @@ def manager_bench_scenario(dev, card):
         return mgr, rec, time.perf_counter() - t0
 
     with SyncCounter() as syncs:
-        mgr, rec, _ = live32(on_frame=syncs.on_frame)
+        mgr, rec, wall = live32(on_frame=syncs.on_frame)
     ref = fx.replays["f32"]
     p = np.stack([x.cpu().numpy() for x in rec["p"][n_warm:]]).astype(np.float64)
     cov_ok = [bool(i["cov_ok"].item()) for i in rec["infos"]]
@@ -811,17 +841,13 @@ def manager_bench_scenario(dev, card):
         log(rec32)
         raise RuntimeError("the live float32 loop failed its gates")
 
-    # ---- the loop's own time: 2 more float32 runs, frames 20-119 --------
-    reps = []
-    for _ in range(2):
-        _, r, wall = live32()
-        rows = r["timings"][n_warm:]
-        mean_ms = lambda key: 1e3 * sum(row[key] for row in rows) / len(rows)
-        reps.append({"build_ms": mean_ms("uwb"), "step_ms": mean_ms("propagation"),
-                     "bookkeeping_ms": mean_ms("marginalization"), "total_ms": mean_ms("total"),
-                     "wall_ms_per_frame_all_120": 1e3 * wall / (n_warm + n)})
-    rec32.update({k + "_median": statistics.median(r[k] for r in reps) for k in reps[0]})
-    rec32.update({"reps": reps, "card": card})
+    # ---- the loop's own time, frames 20-119 of the same run (the sync
+    # counter adds one recorded warning a frame, at the read-back) ---------
+    rows = rec["timings"][n_warm:]
+    mean_ms = lambda key: 1e3 * sum(row[key] for row in rows) / len(rows)
+    rec32.update({"build_ms": mean_ms("uwb"), "step_ms": mean_ms("propagation"),
+                  "bookkeeping_ms": mean_ms("marginalization"), "total_ms": mean_ms("total"),
+                  "wall_ms_per_frame_all_120": 1e3 * wall / (n_warm + n), "card": card})
     log(rec32)
 
 
@@ -942,17 +968,25 @@ def manager_jax_checkpoint(card):
 
 
 def kernel_launches(run):
-    """The number of kernel launches (of any kind) that run() makes, from
-    `torch.profiler`."""
+    """(kernel launches of any kind, CUDA graph launches, kernels run on
+    the device with graph nodes included) that run() makes, from
+    `torch.profiler`'s CUDA events (no operator events: they cost the
+    host more than the launches in a run of ~10^5 small operators)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    keys = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+    keys = {"cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.key in keys)
+    # the raw events: `key_averages()` is slow over the ~10^5 launches of
+    # a solver attempt
+    events = prof.profiler.kineto_results.events()
+    return (sum(e.name() in keys for e in events), sum(e.name() == "cudaGraphLaunch" for e in events),
+            sum(e.device_type() == DeviceType.CUDA and not e.name().startswith(("Memcpy", "Memset"))
+                for e in events))
 
 
 def _hard_sim():
@@ -979,7 +1013,7 @@ def _render_hard_frame(t):
     return _RENDER_SIM.render_image_hard(t)
 
 
-def render_hard(workers=6):
+def render_hard(workers=8):
     """The scenario of the hard rendered-image regression, made on the
     host before any clock starts: (camera, events, ground truth), events
     being ("imu", (t, w, a)) and ("cam", (t, 752x480 hard frame)) in feeding
@@ -1089,7 +1123,7 @@ def tracker_mono_hard(K, card):
         for k, (tc, img) in enumerate(frames[102:107]):
             alone.feed(tc, img)
             syncs.on_frame(k, tc)
-    n_launch = kernel_launches(lambda: [alone.feed(tc, img) for tc, img in frames[107:112]])
+    n_launch = kernel_launches(lambda: [alone.feed(tc, img) for tc, img in frames[107:112]])[0]
     rec = {"phase": "tracker", "part": "mono, hard frames -> KLTTracker -> VioManager (static init + ZUPT)",
            "frames": len(frames), "initialized_frames": res["n"], "min_tracks_after_frame_3":
            min(n_tracks[3:]), "ate_posyaw_rmse_pos_m": res["rmse_pos"], "ate_posyaw_rmse_ori_deg":
@@ -1104,7 +1138,8 @@ def tracker_mono_hard(K, card):
            "kernel_launches_per_feed": n_launch / 5, "card": card}
     log(rec)
     if not (res["n"] >= 100 and min(n_tracks[3:]) >= 15 and res["rmse_pos"] < 0.15
-            and res["rmse_ori_deg"] < 2.5 and cov_ok_all and len(cov_ok) >= 100 and one_and_one):
+            and res["rmse_ori_deg"] < 2.5 and cov_ok_all and len(cov_ok) >= 100 and one_and_one
+            and syncs.per_frame == [1] * 5):
         raise RuntimeError("the hard mono tracker run failed its gates")
     return launches, cam, frames
 
@@ -1270,40 +1305,11 @@ def tracker_phase(K, card):
     return by_path
 
 
-def main():
+def kernels_phase(lib, K, dev, imgs, card):
+    """Phases 3-6 of the module docstring: the yardsticks, both clocks and
+    every kernel against its plain version. Returns {kernel: record}."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    t_start = time.perf_counter()
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import numpy as np
-
-    from uvio_tpu_torch import _build
-    from uvio_tpu_torch.frontend import kernels as K
-
-    dev = torch.device("cuda:0")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    card = f"{torch.cuda.get_device_name(0)} ({smi})"
-    log({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
-         "cuda": torch.version.cuda, "device_count": torch.cuda.device_count()})
-
-    # ---- build -------------------------------------------------------
-    t0 = time.perf_counter()
-    report = _build.build()
-    lib = _build.load()
-    log({"phase": "build", "seconds": time.perf_counter() - t0, "lib": _build.LIB_PATH})
-    print(report, file=sys.stderr)
-
-    sim, imgs, stamps, imu = render(60)
-    log({"phase": "render", "frames": len(imgs), "resolution": "752x480"})
     inp = kernel_inputs(dev, imgs)
     rendered, pyr0, pyr1, uv0, valid = (inp[k] for k in ("rendered", "pyr0", "pyr1", "uv0", "valid"))
     N = uv0.shape[0]
@@ -1359,6 +1365,20 @@ def main():
          "image_bytes_touched_coarse_to_fine": bounds["image_bytes_coarse_to_fine"],
          "operations": bounds["operations"], "card": card})
 
+    for rec in kernels.values():
+        rec["profiler_ms"] = None  # the slice phase reads it where it runs
+    return kernels
+
+
+def slice_phase(K, dev, render_out, card):
+    """Phase 7 of the module docstring. Returns (launch counts, the hand
+    kernels' device ms by name under the profiler)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    sim, imgs, stamps, imu = render_out
     # ---- the slice ---------------------------------------------------
     steps, step, make_carry, st0, frames, windows = slice_steps(dev, sim, imgs, stamps, imu)
 
@@ -1387,10 +1407,8 @@ def main():
         log(slice_rec)
         raise RuntimeError("the slice failed its gates")
 
-    # nothing inside a step should wait for the host; count what does
+    # nothing inside a step waits for the host; count what does
     torch.cuda.set_sync_debug_mode("warn")
-    import warnings
-
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -1401,7 +1419,7 @@ def main():
     sync_ops = sorted({str(w.message).split("\n")[0][:120] for w in caught})
 
     reps = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         run_slice()
         reps.append((time.perf_counter() - t0) / n_steps * 1e3)
@@ -1412,34 +1430,314 @@ def main():
             next(frames_it)
 
     profiled = profiled_kernel_ms(five_steps)
-    kernels["fast9"]["profiler_ms"] = profiled.get("fast9_kernel", {}).get("ms")
-    kernels["lk_track"]["profiler_ms"] = profiled.get("lk_kernel", {}).get("ms")
-    kernels["lk_level"]["profiler_ms"] = None  # not launched on the main path
     slice_rec.update({"per_frame_ms_median": statistics.median(reps), "per_frame_ms_reps": reps,
                       "host_syncs_in_one_step": len(caught), "sync_sources": sync_ops,
                       "profiled_kernels": profiled, "card": card})
     log(slice_rec)
+    if caught:
+        raise RuntimeError(f"{len(caught)} host syncs inside one slice step: {sync_ops}")
+    return launches, profiled
 
-    full_step_phase(dev, card)
-    manager_phase(dev, card)
-    by_path = {"slice": launches, **tracker_phase(K, card)}
-    total = {k: sum(p[k] for p in by_path.values()) for k in launches}
-    for k in kernels:
-        kernels[k]["launches_by_path"] = {path: p[k] for path, p in by_path.items()}
 
-    log({"phase": "total", "seconds": time.perf_counter() - t_start})
-    src = "uvio_tpu_torch/csrc/"
-    log({"kernels": [
-        {"name": "fast9", "route": "cuda", "source": src + "fast9.cu",
-         "replaces": "uvio_tpu/frontend/pallas_kernels.py:78", "launches": total["fast9"],
-         **kernels["fast9"]},
-        {"name": "lk_level", "route": "cuda", "source": src + "lk_level.cu",
-         "replaces": "uvio_tpu/frontend/pallas_kernels.py:617", "launches": total["lk_level"],
-         **kernels["lk_level"]},
-        {"name": "lk_track", "route": "cuda", "source": src + "lk_level.cu",
-         "replaces": "uvio_tpu/frontend/pallas_kernels.py:617", "launches": total["lk_track"],
-         **kernels["lk_track"]},
-    ]})
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+# ceilings on one `solve_dynamic_init` attempt on the card: warm, at 10 or
+# 50 Gauss-Newton steps, and in the run, where the first attempt also pays
+# the process's first use of the solver's kernels and libraries; a stall
+# longer than that while a run starts is a regression
+WARM_SOLVE_MS_CEILING = 6000.0
+SOLVE_MS_CEILING = 30000.0
+
+
+def init_in_motion(card):
+    """The end-to-end scenario of tests/test_dynamic_init.py through
+    `VioManager` on the card, every solver attempt timed to its read-back
+    (module docstring, phase 11 (a))."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import uvio_tpu_torch.manager as TM
+    from uvio_tpu_torch.eval import ate
+    from uvio_tpu_torch.sim import SimParams, Simulator, circle_trajectory
+
+    sim = Simulator(SimParams(seed=11), trajectory=circle_trajectory(duration=24.0, lap_s=8.0))
+    cam = sim.params.cameras[0]
+    mgr = TM.VioManager(TM.VioConfig(
+        max_clones=11, sigma_pix=1.0, use_static_init=True, use_dynamic_init=True, max_slam=15,
+        cameras=[TM.CameraConfig(model=cam.model, intrinsics=cam.intrinsics, q_ItoC=cam.q_ItoC,
+                                 p_IinC=cam.p_IinC)]))
+    if mgr.device != torch.device("cuda:0"):
+        raise RuntimeError(f"the manager runs on {mgr.device}")
+    cov_ok = hooked_cov_ok(mgr)
+    attempts, last_args, solve = [], [], TM.solve_dynamic_init
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = solve(*args)
+        rmse = float(out["rmse_norm"])  # the read-back
+        attempts.append({"ms": (time.perf_counter() - t0) * 1e3, "rmse_norm": rmse,
+                         "rcond": float(out["rcond"]), "steps_taken": int(out["accepted"].sum().item()),
+                         "device": str(out["rcond"].device)})
+        last_args[:] = args
+        return out
+
+    TM.solve_dynamic_init = timed
+    est, init_t, tc = {"t": [], "q": [], "p": [], "gq": [], "gp": []}, None, 0.0
+    t0 = time.perf_counter()
+    try:
+        while sim.ok():
+            r = sim.get_next_imu()
+            if r is None:
+                break
+            mgr.feed_imu(*r)
+            if sim.cur_cam_t + 0.1 <= r[0]:
+                rc = sim.get_next_cam()
+                if rc is None:
+                    break
+                tc, obs = rc
+                mgr.feed_features(tc, obs)
+                if mgr.is_initialized:
+                    init_t = tc if init_t is None else init_t
+                    q, p = mgr.get_pose()
+                    g = sim.get_gt_state(tc)
+                    for k, v in (("t", tc), ("q", q), ("p", p), ("gq", g["q_GtoI"]), ("gp", g["p_IinG"])):
+                        est[k].append(v)
+            if init_t is not None and tc - init_t > 12:
+                break
+    finally:
+        TM.solve_dynamic_init = solve
+    wall = time.perf_counter() - t0
+    if init_t is None:
+        log({"phase": "init", "part": "dynamic init in motion", "attempts": attempts})
+        raise RuntimeError("dynamic initialization never fired")
+    t = np.asarray(est["t"])
+    res = ate(t, np.asarray(est["q"]), np.asarray(est["p"]), t, np.asarray(est["gq"]),
+              np.asarray(est["gp"]), method="posyaw")
+    launches, graph_launches, device_kernels = kernel_launches(lambda: solve(*last_args)["rcond"].item())
+
+    def warm_ms(opts):
+        t1 = time.perf_counter()
+        float(solve(*last_args[:-1], opts)["rmse_norm"])  # the read-back
+        return (time.perf_counter() - t1) * 1e3
+
+    # the last window again, warm, at its own and at the vendored configs'
+    # 50 Gauss-Newton steps
+    warm = {n: warm_ms(dataclasses.replace(last_args[-1], gn_iters=n)) for n in (last_args[-1].gn_iters, 50)}
+    cov_ok_all = all(bool(x.item()) for x in cov_ok)
+    rec = {"phase": "init", "part": "dynamic init in motion (seed 11, VioManager, float64)",
+           "init_after_start_s": init_t - sim.t_start, "attempts": len(attempts),
+           "gn_iters": last_args[-1].gn_iters, "solve_ms_per_attempt": [a["ms"] for a in attempts],
+           "attempt_results": attempts, "warm_solve_ms_by_gn_iters": warm,
+           "kernel_launches_per_solve": launches, "graph_launches_per_solve": graph_launches,
+           "device_kernels_per_solve": device_kernels, "frames_after_init": len(t),
+           "ate_posyaw_rmse_pos_m": res["rmse_pos"], "ate_posyaw_rmse_ori_deg": res["rmse_ori_deg"],
+           "cov_ok_all": cov_ok_all, "steps": len(cov_ok), "wall_s": wall, "card": card}
+    log(rec)
+    if not (init_t - sim.t_start < 5.0 and res["rmse_pos"] < 0.25 and cov_ok_all and len(cov_ok) > 100
+            and all(a["device"] == "cuda:0" for a in attempts)):
+        raise RuntimeError("dynamic initialization in motion failed its gates")
+    if max(warm.values()) > WARM_SOLVE_MS_CEILING or max(a["ms"] for a in attempts) > SOLVE_MS_CEILING:
+        raise RuntimeError(f"a solver attempt took more than {WARM_SOLVE_MS_CEILING} ms warm "
+                           f"or {SOLVE_MS_CEILING} ms in the run")
+
+
+def init_run_euroc(K, card):
+    """`run_euroc` on a synthetic ASL dataset (module docstring, phase 11
+    (b)). Returns the launch counts."""
+    from uvio_tpu_torch.eval import ate
+    from uvio_tpu_torch.frontend import tracker as T
+    from uvio_tpu_torch.native import get_lib
+    from uvio_tpu_torch.utils.euroc import EurocDataset, run_euroc, write_synthetic_dataset
+
+    per_feed, feed_ms, devices, feed = [], [], set(), T.KLTTracker.feed
+
+    def counted(self, *args, **kw):
+        before = dict(K.launch_counts)
+        t0 = time.perf_counter()
+        out = feed(self, *args, **kw)
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+        per_feed.append(tuple(K.launch_counts[k] - before[k] for k in ("fast9", "lk_track", "lk_level")))
+        devices.add(str(self.device))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root, cfg = write_synthetic_dataset(tmp, os.path.join(ROOT, "data", "streams", "mono", "config"))
+        write_s = time.perf_counter() - t0
+        T.KLTTracker.feed = counted
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            t, q, p = run_euroc(root, cfg, out_path=os.path.join(tmp, "est.txt"))
+        finally:
+            T.KLTTracker.feed = feed
+        run_s = time.perf_counter() - t0
+        launches = dict(K.launch_counts)
+        gt = EurocDataset(root).groundtruth()
+    res = ate(t, q, p, gt["t"], gt["q_GtoI"], gt["p"], method="posyaw")
+    native = get_lib() is not None
+    rec = {"phase": "init", "part": "run_euroc on a synthetic ASL dataset (seed 13, 16 s, 5 s at rest)",
+           "frames": len(per_feed), "poses": len(t), "ate_posyaw_rmse_pos_m": res["rmse_pos"],
+           "ate_posyaw_rmse_ori_deg": res["rmse_ori_deg"],
+           "fast9_lk_track_lk_level_launches_per_feed": sorted(set(per_feed[1:])),
+           "first_feed_launches": per_feed[0] if per_feed else None, "launches": launches,
+           "tracker_devices": sorted(devices), "native_library_built": native,
+           "tracker_feed_ms_median": statistics.median(feed_ms[3:]), "write_dataset_s": write_s,
+           "run_s": run_s, "card": card}
+    log(rec)
+    if not (len(t) >= 25 and res["rmse_pos"] < 0.5 and per_feed[0] == (1, 0, 0) and native
+            and all(x == (1, 1, 0) for x in per_feed[1:]) and devices == {"cuda:0"}):
+        raise RuntimeError("run_euroc failed its gates")
+    return launches
+
+
+def init_phase(K, card):
+    """The in-motion initializer and the dataset entry point (module
+    docstring, phase 11): {path: launch counts}."""
+    init_in_motion(card)
+    return {"run_euroc": init_run_euroc(K, card)}
+
+
+def streams_phase(card):
+    """The vendored UWB stream through the port's config loader and
+    `UVioManager` on the card (module docstring, phase 12)."""
+    import dataclasses
+
+    import torch
+
+    from uvio_tpu_torch.eval import ate, load_tum
+    from uvio_tpu_torch.utils import load_config
+    from uvio_tpu_torch.utils.streams import anchor_errors, replay
+    from uvio_tpu_torch.uwb_manager import UVioManager
+
+    data = os.path.join(ROOT, "data", "streams", "uwb")
+    cfg, _ = load_config(os.path.join(data, "config"))
+    mgr = UVioManager(dataclasses.replace(cfg, use_static_init=False, use_dynamic_init=False))
+    if mgr.device != torch.device("cuda:0"):
+        raise RuntimeError(f"the manager runs on {mgr.device}")
+    cov_ok = hooked_cov_ok(mgr)
+    frame_ms = []
+    t0 = time.perf_counter()
+    t, q, p = replay(mgr, data, on_frame=lambda m: frame_ms.append(m.last_timing["total"] * 1e3))
+    wall = time.perf_counter() - t0
+    tg, qg, pg = load_tum(os.path.join(data, "gt.txt"))
+    ours = ate(t, q, p, tg, qg, pg, method="se3")
+    ref = ate(*load_tum(os.path.join(data, "ref_est.txt")), tg, qg, pg, method="se3")
+    anchors, anchors_ref = anchor_errors(mgr, data)
+    cov_ok_all = all(bool(x.item()) for x in cov_ok)
+    rec = {"phase": "streams", "stream": "data/streams/uwb", "manager": "UVioManager", "dtype": cfg.dtype,
+           "frames": len(t), "ate_se3_rmse_pos_m": ours["rmse_pos"],
+           "ate_se3_rmse_pos_m_cpp_reference": ref["rmse_pos"], "ate_se3_rmse_ori_deg": ours["rmse_ori_deg"],
+           "ate_se3_rmse_ori_deg_cpp_reference": ref["rmse_ori_deg"], "anchor_rmse_m": anchors,
+           "anchor_rmse_m_cpp_reference": anchors_ref, "cov_ok_all": cov_ok_all, "steps": len(cov_ok),
+           "frame_ms_median": statistics.median(frame_ms[20:]), "frame_ms_mean": statistics.fmean(frame_ms[20:]),
+           "wall_s": wall, "card": card}
+    log(rec)
+    if not (len(t) > 400 and ours["rmse_pos"] <= ref["rmse_pos"] and anchors <= anchors_ref and cov_ok_all
+            and len(cov_ok) == len(t)):
+        raise RuntimeError("the vendored UWB stream failed the C++ reference's gates")
+
+
+PHASES = ("kernels", "slice", "full_step", "manager", "tracker", "init", "streams")
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of " + ", ".join(PHASES) + " (default: all)")
+    phases = set(ap.parse_args(argv).phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    sys.path.insert(0, ROOT)
+    from uvio_tpu_torch import _build
+    from uvio_tpu_torch.frontend import kernels as K
+
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    log({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
+         "cuda": torch.version.cuda, "device_count": torch.cuda.device_count(),
+         "phases": [p for p in PHASES if p in phases]})
+
+    # ---- build -------------------------------------------------------
+    t0 = time.perf_counter()
+    report = _build.build()
+    lib = _build.load()
+    log({"phase": "build", "seconds": time.perf_counter() - t0, "lib": _build.LIB_PATH})
+    print(report, file=sys.stderr)
+
+    render_out = render(60) if phases & {"kernels", "slice"} else None
+    if render_out is not None:
+        log({"phase": "render", "frames": len(render_out[1]), "resolution": "752x480"})
+    seconds, t0 = {}, time.perf_counter()
+
+    def done(phase):
+        nonlocal t0
+        seconds[phase] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    kernels = None
+    if "kernels" in phases:
+        kernels = kernels_phase(lib, K, dev, render_out[1], card)
+        done("kernels")
+    by_path = {}
+    if "slice" in phases:
+        by_path["slice"], profiled = slice_phase(K, dev, render_out, card)
+        if kernels is not None:
+            kernels["fast9"]["profiler_ms"] = profiled.get("fast9_kernel", {}).get("ms")
+            kernels["lk_track"]["profiler_ms"] = profiled.get("lk_kernel", {}).get("ms")
+        done("slice")
+    if "full_step" in phases:
+        full_step_phase(dev, card)
+        done("full_step")
+    if "manager" in phases:
+        manager_phase(dev, card)
+        done("manager")
+    if "tracker" in phases:
+        by_path.update(tracker_phase(K, card))
+        done("tracker")
+    if "init" in phases:
+        by_path.update(init_phase(K, card))
+        done("init")
+    if "streams" in phases:
+        streams_phase(card)
+        done("streams")
+
+    log({"phase": "total", "seconds": time.perf_counter() - t_start, "phase_seconds": seconds})
+    if kernels is not None:
+        total = {k: sum(p[k] for p in by_path.values()) for k in kernels}
+        for k in kernels:
+            kernels[k]["launches_by_path"] = {path: p[k] for path, p in by_path.items()}
+        src = "uvio_tpu_torch/csrc/"
+        log({"kernels": [
+            {"name": "fast9", "route": "cuda", "source": src + "fast9.cu",
+             "replaces": "uvio_tpu/frontend/pallas_kernels.py:78", "launches": total["fast9"],
+             **kernels["fast9"]},
+            {"name": "lk_level", "route": "cuda", "source": src + "lk_level.cu",
+             "replaces": "uvio_tpu/frontend/pallas_kernels.py:617", "launches": total["lk_level"],
+             **kernels["lk_level"]},
+            {"name": "lk_track", "route": "cuda", "source": src + "lk_level.cu",
+             "replaces": "uvio_tpu/frontend/pallas_kernels.py:617", "launches": total["lk_track"],
+             **kernels["lk_track"]},
+        ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -211,3 +211,61 @@ def test_ransac_matches_with_jax_noise():
         b = TK.ransac_fundamental(_t(x1), _t(x2), _t(valid, torch.bool), thresh, gumbel=g).numpy()
         np.testing.assert_array_equal(a, b)
         assert 100 < b.sum() < valid.sum()
+
+
+def _eight_point_rows(x1, x2):
+    u1, v1, u2, v2 = x1[..., 0], x1[..., 1], x2[..., 0], x2[..., 1]
+    return np.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, np.ones_like(u1)], -1)
+
+
+@pytest.mark.parametrize("kind", ["random", "near_degenerate", "exact_rank_8"])
+def test_smallest_eigvec_matches_eigh(kind):
+    """RANSAC's sync-free null vector (inverse iteration on a Cholesky
+    factor, fixed count) against `eigh`'s smallest eigenvector and a
+    50-digit eigen-decomposition, up to sign, float64, on 64 systems
+    A^T A of 8 correspondences each: 8 unrelated correspondences (a
+    RANSAC sample with outliers), 8 exact ones of a two-view scene (also
+    against its essential matrix), and 8 rows of which two lie within
+    1e-3 of combinations of the others. How well any float64 solver can
+    do is set by the eigengap, so the tolerance of system b is
+    1e-15 lambda_max / lambda_2 (+ 1e-13): `eigh` stays within a tenth
+    of that of the 50-digit answer on these systems, inverse iteration
+    within a fiftieth."""
+    import mpmath
+
+    rng = np.random.default_rng({"random": 0, "near_degenerate": 1, "exact_rank_8": 2}[kind])
+    B = 64
+    E = None
+    if kind == "random":
+        A = _eight_point_rows(rng.uniform(-0.8, 0.8, (B, 8, 2)), rng.uniform(-0.8, 0.8, (B, 8, 2)))
+    elif kind == "exact_rank_8":
+        X = np.concatenate([rng.uniform(-2, 2, (B, 8, 2)), rng.uniform(4, 8, (B, 8, 1))], -1)
+        ang = 0.1
+        R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]])
+        t = np.array([0.3, 0.05, 0.1])
+        X2 = X @ R.T + t
+        A = _eight_point_rows(X[..., :2] / X[..., 2:], X2[..., :2] / X2[..., 2:])
+        tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+        E = (tx @ R).reshape(-1) / np.linalg.norm(tx @ R)
+    else:
+        A = rng.standard_normal((B, 8, 9))
+        A[:, 6:] = rng.standard_normal((B, 2, 6)) @ A[:, :6] + 1e-3 * rng.standard_normal((B, 2, 9))
+    M = torch.as_tensor(np.swapaxes(A, 1, 2) @ A)
+    got = TK.smallest_eigvec(M).numpy()
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, rtol=0, atol=1e-12)
+    w, V = torch.linalg.eigh(M)
+    tol = (1e-15 * w[:, -1] / w[:, 1]).numpy() + 1e-13
+
+    mpmath.mp.dps = 50
+    truth = []
+    for b in range(B):
+        ev, Q = mpmath.eigsy(mpmath.matrix(A[b].T.tolist()) * mpmath.matrix(A[b].tolist()))
+        i = min(range(9), key=lambda k: ev[k])
+        truth.append([float(Q[j, i]) for j in range(9)])
+    refs = [V[..., 0].numpy(), np.asarray(truth)] + ([np.broadcast_to(E, got.shape)] if E is not None else [])
+    for ref in refs:
+        sign = np.sign(np.sum(got * ref, axis=-1, keepdims=True))
+        err = np.abs(got * sign - ref).max(-1)
+        assert (err <= tol).all(), (kind, (err / tol).max())
+    if kind == "near_degenerate":
+        assert (w[:, 1] / w[:, -1]).max() < 1e-7  # the case is what it says

@@ -4,8 +4,14 @@ teacher-forced for 10 hard rendered frames at 752x480 (before each frame
 the plain tracker takes the kernel tracker's state, and both get the same
 RANSAC noise): FAST-9 bitwise, LK masks equal, positions within 3.4e-4 px
 where float32 determines them (on a weak patch the plain version itself
-moves by more between float32 and float64), the same detections, and one
-launch of each kernel per `feed`. Skips without a CUDA device.
+moves by more between float32 and float64), within 0.05 px where float32
+determines them to 0.05 px, and on every track no further from the
+float64 evaluation than the plain float32 chain is, plus 0.05 px (on a
+near-singular coarse level the plain float32 chain can land pixels away
+from its own float64 evaluation, and then no float32 order of the sums
+is the right one; at most 1% of the tracks may be such), the same
+detections, and one launch of each kernel per `feed`. Skips without a
+CUDA device.
 
 Imports neither JAX nor `uvio_tpu`, so it runs on a machine with only
 PyTorch; there, skip the JAX conftest:
@@ -62,8 +68,8 @@ def test_feed_through_kernels_matches_plain(dev, monkeypatch):
 
     for t, img in frames[:2]:
         a.feed(t, img)
-    worst = worst_any = 0.0
-    n_both = n_stable = 0
+    worst = worst_any = worst_vs_64 = 0.0
+    n_both = n_stable = n_undetermined = 0
     for t, img in frames[2:]:
         b.uv, b.active, b.ids, b.next_id = a.uv.copy(), a.active.copy(), a.ids.copy(), a.next_id
         b.prev_img, b.prev_pyr, b.levels = a.prev_img, a.prev_pyr, a.levels
@@ -84,11 +90,22 @@ def test_feed_through_kernels_matches_plain(dev, monkeypatch):
         # lies within 2.5e-4 px of its float64 evaluation
         uv_64, _ = K.lk_track_ref([p.double() for p in a.prev_pyr], [p.double() for p in pyr],
                                   uv.double(), active, half=a.half)
-        stable = both & ((uv_p.double() - uv_64).abs().amax(1) < 2.5e-4)
+        f32_err = (uv_p.double() - uv_64).abs().amax(1)
+        stable = both & (f32_err < 2.5e-4)
+        near = both & (f32_err <= 0.05)
         n_both += int(both.sum())
         n_stable += int(stable.sum())
+        n_undetermined += int((both & ~near).sum())
         worst = max(worst, float((uv_k[stable] - uv_p[stable]).abs().max()))
-        worst_any = max(worst_any, float((uv_k[both] - uv_p[both]).abs().max()))
+        worst_any = max(worst_any, float((uv_k[near] - uv_p[near]).abs().max()))
+        # every track: the kernel lies no further from the float64 evaluation
+        # than the plain float32 chain does
+        k64_err = (uv_k.double() - uv_64).abs().amax(1)
+        worst_vs_64 = max(worst_vs_64, float((k64_err - f32_err)[both].max()))
+        for i in (both & ~near).nonzero().flatten().tolist():
+            print(f"t={t:.2f} track {i}: float32 plain vs float64 {float(f32_err[i]):.4g} px, "
+                  f"kernel vs float64 {float(k64_err[i]):.4g} px, "
+                  f"kernel vs plain {float((uv_k[i] - uv_p[i]).abs().max()):.4g} px")
         assert torch.equal(dk_k, dk_p) and torch.equal(du_k[dk_k], du_p[dk_p])
 
         # the whole feed: exactly one launch of each kernel, one packed read-back
@@ -98,8 +115,10 @@ def test_feed_through_kernels_matches_plain(dev, monkeypatch):
         assert not (tr_k.cpu().numpy() & ~a.active).any()  # what was tracked stays active
         assert len(ids) == a.active.sum() >= 50 and uvs.shape == (len(ids), 2)
     assert n_stable >= 0.85 * n_both, (n_stable, n_both)
+    assert n_undetermined <= 0.01 * n_both, (n_undetermined, n_both)
     assert worst <= 3.4e-4, worst
     assert worst_any <= 0.05, worst_any  # the rest: weak patches, still the same track
+    assert worst_vs_64 <= 0.05, worst_vs_64
 
 
 @pytest.mark.parametrize("window_half", [5, 7])

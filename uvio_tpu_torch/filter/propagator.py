@@ -567,7 +567,21 @@ def select_imu_readings_np(
     (`Propagator::select_imu_readings` + `interpolate_data`): the samples
     covering [t0, t1] with interpolated boundary samples, padded by
     repeating the last one to `m_max` rows.
-    Returns (t (m_max,), w (m_max,3), a (m_max,3))."""
+    Returns (t (m_max,), w (m_max,3), a (m_max,3)).
+
+    Dispatches to the native C++ copy when it is built
+    (`uvio_tpu_torch/native`), as `uvio_tpu` does; the numpy body,
+    `select_imu_readings_spec`, is the fallback and the specification."""
+    from ..native import select_imu_readings as _native
+
+    out = _native(times, ws, accs, t0, t1, m_max)
+    return out if out is not None else select_imu_readings_spec(times, ws, accs, t0, t1, m_max)
+
+
+def select_imu_readings_spec(
+    times: np.ndarray, ws: np.ndarray, accs: np.ndarray, t0: float, t1: float, m_max: int
+):
+    """`select_imu_readings_np` in numpy, the native code's specification."""
     if not t1 > t0:
         raise ValueError("backwards propagation request")
 

@@ -1,0 +1,3 @@
+from .database import Feature, FeatureDatabase
+
+__all__ = ["Feature", "FeatureDatabase"]

@@ -109,16 +109,52 @@ def grid_detect(
     return uv.reshape(G * per_cell, 2), valid.reshape(G * per_cell)
 
 
+# inverse iterations of the 8-point null vector: each shrinks the error
+# by (lambda_1 + eps) / (lambda_2 + eps), where lambda_1 is 0 up to
+# rounding (8 rows, 9 unknowns) and eps is 1e-13 trace(M)
+_NULL_ITERS = 4
+
+
+def smallest_eigvec(M: torch.Tensor) -> torch.Tensor:
+    """Unit eigenvector of the smallest eigenvalue of symmetric PSD
+    matrices M (B,n,n), up to sign, by inverse iteration on
+    M + eps I in float64 with a fixed iteration count.
+
+    `torch.linalg.eigh` waits for the host to check its error code; this
+    factors with `cholesky_ex(check_errors=False)` and two triangular
+    solves per iteration, so it never does. eps = 1e-13 trace(M) keeps
+    the factor positive definite against float64 rounding of M (~1e-15
+    trace(M)); a factor that fails anyway gives NaN, which no Sampson
+    test accepts, so that hypothesis counts no inliers."""
+    M = M.to(torch.float64)
+    n = M.shape[-1]
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    eps = 1e-13 * torch.diagonal(M, dim1=-2, dim2=-1).sum(-1) + 1e-300
+    L, _ = torch.linalg.cholesky_ex(M + eps[..., None, None] * eye, check_errors=False)
+    # a start with no symmetry that would keep it orthogonal to the answer
+    v = torch.linspace(1.0, 2.0, n, dtype=M.dtype, device=M.device).expand(*M.shape[:-1])
+    v = v[..., None]
+    for _ in range(_NULL_ITERS):
+        y = torch.linalg.solve_triangular(L, v, upper=False)
+        v = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+        v = v / torch.linalg.vector_norm(v, dim=-2, keepdim=True)
+    return v[..., 0]
+
+
 def _fundamental_8pt(x1, x2):
     """F from 8 normalized correspondences, batched: x (B,8,2) -> (B,3,3)
-    as the smallest eigenvector of A^T A."""
+    as the smallest eigenvector of A^T A (`uvio_tpu` takes it from
+    `eigh`; the sign, which `eigh` leaves free too, does not change a
+    Sampson distance)."""
+    dtype = x1.dtype
+    x1, x2 = x1.to(torch.float64), x2.to(torch.float64)
     u1, v1 = x1[..., 0], x1[..., 1]
     u2, v2 = x2[..., 0], x2[..., 1]
     A = torch.stack(
         [u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, torch.ones_like(u1)], dim=-1
     )
-    _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
-    return V[..., :, 0].reshape(-1, 3, 3)
+    f = smallest_eigvec(A.transpose(-1, -2) @ A)
+    return f.to(dtype).reshape(-1, 3, 3)
 
 
 def _sampson(F, x1, x2):

@@ -20,9 +20,8 @@ window grow to N+1 between `augment_clone` and the end-of-update
 marginalization (`VioManager.cpp:584-597`); the extra slot gives the same
 semantics with static shapes.
 
-Not ported, each raising `NotImplementedError` in the constructor:
-`use_dynamic_init=True` (the in-motion initializer) and `fused_step=False`
-(the staged per-frame path with one dispatch per stage).
+Not ported: `fused_step=False` (the staged per-frame path with one
+dispatch per stage) raises `NotImplementedError` in the constructor.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ import torch
 from .cam import RADTAN
 from .cam import models as cam_models
 from .device import resolve_device
-from .filter.ekf import marginalize_clone, marginalize_slam, set_block_covariance
+from .filter.ekf import augment_clone, marginalize_clone, marginalize_slam, set_block_covariance
 from .filter.propagator import (
     NoiseManager,
     propagate_and_clone,
@@ -46,7 +45,9 @@ from .filter.propagator import (
     select_imu_readings_np,
 )
 from .frontend.database import FeatureDatabase
+from .init.dynamic_init import DynamicInitOptions, result_to_state_first, solve_dynamic_init
 from .init.static_init import StaticInitOptions, try_static_init
+from .math import quat_to_rot
 from .pipeline import FullStepConfig, bundle_from_numpy, make_full_step, plan_frame
 from .types.layout import StateLayout
 from .types.state import FilterState, init_state
@@ -122,8 +123,8 @@ class VioConfig:
     use_static_init: bool = False
     init_options: StaticInitOptions = dataclasses.field(default_factory=StaticInitOptions)
     init_max_disparity: float = 10.0  # px, stillness check for no-jerk init
-    use_dynamic_init: bool = False  # init_dyn_use; not ported, raises
-    dyn_init_options: object = None
+    use_dynamic_init: bool = False  # init_dyn_use
+    dyn_init_options: Optional[DynamicInitOptions] = None
     # zero-velocity update
     try_zupt: bool = False
     zupt_chi2_mult: float = 1.0
@@ -175,8 +176,6 @@ class VioManager:
         return {}
 
     def __init__(self, cfg: VioConfig):
-        if cfg.use_dynamic_init:
-            raise NotImplementedError("use_dynamic_init=True: the dynamic initializer is not ported")
         if not cfg.fused_step:
             raise NotImplementedError("fused_step=False: the staged per-frame path is not ported")
         self.cfg = cfg
@@ -419,6 +418,143 @@ class VioManager:
                 self.init_replay_rows.append((ft, *self.get_pose()))
         return True
 
+    def _try_dynamic_init(self, t: float) -> bool:
+        """In-motion initialization (the InertialInitializer's dynamic
+        path): gather the last `num_pose` frame times, the feature tracks
+        and the IMU slices between them, solve the shooting MLE on the
+        manager's device (float64), gate on reprojection rmse, rcond and
+        the biases, then seed the filter at the first pose and replay the
+        window (`uvio_tpu/manager.py` `_try_dynamic_init`)."""
+        opts = self.cfg.dyn_init_options or DynamicInitOptions()
+        # rotation gate (init_dyn_min_deg): require accumulated gyro
+        # rotation over the window before attempting (the reference sums
+        # |w| dt in degrees, `DynamicInitializer.cpp:~110-130`)
+        if opts.min_deg > 0 and self._imu_t:
+            it = np.asarray(self._imu_t)
+            iw = np.stack(self._imu_w)
+            sel = it >= t - self.cfg.init_options.window_time
+            if sel.sum() >= 2:
+                dts = np.diff(it[sel])
+                wn = np.linalg.norm(iw[sel][1:], axis=1)
+                if np.degrees(np.sum(wn * np.clip(dts, 0, None))) < opts.min_deg:
+                    return False
+        # frame times observed so far (from the db)
+        all_times = sorted({tt for f in self.db.features.values() for tt in f.times()})
+        if len(all_times) < opts.num_pose:
+            return False
+        span = self.cfg.init_options.window_time
+        pose_times = [tt for tt in all_times if tt >= t - span]
+        if len(pose_times) < opts.num_pose:
+            return False
+        # demand most of the window to be filled: short spans let the
+        # biases absorb arbitrary error while still fitting reprojection
+        if pose_times[-1] - pose_times[0] < 0.75 * span:
+            return False
+        idx = np.linspace(0, len(pose_times) - 1, opts.num_pose).astype(int)
+        pose_times = [pose_times[i] for i in sorted(set(idx))]
+        if len(pose_times) < opts.num_pose:
+            return False
+        if not self._imu_t or self._imu_t[0] > pose_times[0]:
+            return False
+        P = opts.num_pose
+        M = self.layout.max_imu_batch * 4
+        imu_t = np.zeros((P - 1, M))
+        imu_w = np.zeros((P - 1, M, 3))
+        imu_a = np.zeros((P - 1, M, 3))
+        # pose times are camera-clock: shift IMU windows by the seeded
+        # camera-IMU offset (the initializer uses t_img + t_off as well)
+        dt0 = self._dt_host
+        times, ws, accs = np.asarray(self._imu_t), np.stack(self._imu_w), np.stack(self._imu_a)
+        try:
+            for i in range(P - 1):
+                imu_t[i], imu_w[i], imu_a[i] = select_imu_readings_np(
+                    times, ws, accs, pose_times[i] + dt0, pose_times[i + 1] + dt0, M
+                )
+        except ValueError:  # a backwards request or a window over M samples
+            return False
+        # feature tracks at those pose times (cam 0), undistorted
+        cam = self.cfg.cameras[0]
+        F = opts.max_features
+        obs = np.zeros((F, P, 2))
+        mask = np.zeros((F, P), bool)
+        count = 0
+        for f in self.db.features.values():
+            by_t = {o[0]: (o[1], o[2]) for o in f.obs.get(0, [])}
+            hits = [p for p, pt in enumerate(pose_times) if pt in by_t]
+            if len(hits) < P - 1:
+                continue
+            for p in hits:
+                obs[count, p] = by_t[pose_times[p]]
+                mask[count, p] = True
+            count += 1
+            if count == F:
+                break
+        if count < opts.min_features:
+            return False
+        f64 = torch.float64
+        on = lambda x, dtype=f64: torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+        mask_d = on(mask, torch.bool)
+        uvn = cam_models.undistort(on(cam.intrinsics), cam.model, on(obs.reshape(-1, 2))).reshape(F, P, 2)
+        uvn = torch.where(mask_d[..., None], uvn, torch.zeros_like(uvn))
+        out = solve_dynamic_init(
+            on(imu_t), on(imu_w), on(imu_a), uvn, mask_d,
+            quat_to_rot(on(cam.q_ItoC)), on(cam.p_IinC), opts,
+        )
+        if float(out["rmse_norm"]) > opts.max_reproj_rmse:
+            return False
+        # conditioning gate (init_dyn_min_rec_cond): accept only if the
+        # IMU-state information block is well conditioned
+        if float(out["rcond"]) < opts.min_rec_cond:
+            return False
+        # bias plausibility gates (an init that "explains" motion with a
+        # huge accel bias is overfit, not initialized)
+        p_sol = out["params"]
+        if float(torch.linalg.vector_norm(p_sol["ba"])) > 0.5 or float(
+            torch.linalg.vector_norm(p_sol["bg"])
+        ) > 0.1:
+            return False
+        st = result_to_state_first(p_sol, opts)
+        # seeded prior stds, scaled by the reference's inflation knobs
+        # (init_dyn_inflation_*; base sigmas chosen so the reference
+        # defaults 10/10/100/100 reproduce the tuned values below)
+        s_ori = 0.10 * np.sqrt(opts.inflation_ori / 10.0)
+        s_vel = 0.30 * np.sqrt(opts.inflation_vel / 10.0)
+        s_bg = 0.05 * np.sqrt(opts.inflation_bg / 100.0)
+        s_ba = 0.20 * np.sqrt(opts.inflation_ba / 100.0)
+        prior_std = np.concatenate(
+            [
+                np.full(2, s_ori),  # roll/pitch (gravity estimate quality)
+                np.full(1, 1e-4),  # yaw pinned (frame definition)
+                np.full(3, 1e-4),  # position (origin definition)
+                np.full(3, s_vel),  # velocity
+                np.full(3, s_bg),
+                np.full(3, s_ba),
+            ]
+        )
+        self.initialize_with_gt(
+            pose_times[0], st["q_GtoI"], st["p"], st["v"], st["bg"], st["ba"], prior_std=prior_std
+        )
+        # replay the window: clone at the first pose, then fast-forward
+        # propagate+clone through the remaining pose times so the filter
+        # starts with a full, well-conditioned clone window
+        # (VioManagerHelper.cpp:111-166)
+        self.state = augment_clone(self.state, self.layout, torch.zeros(3, dtype=self.dtype, device=self.device))
+        K = self.layout.max_clones
+        self._head = 0 if self._head < 0 else (self._head + 1) % K
+        self.slot_times[self._head] = pose_times[0]
+        # replay every frame time in the window (consecutive frames keep
+        # IMU slices within max_imu_batch), marginalizing as we go.
+        # No `init_replay_rows` here, as in `uvio_tpu`: the reference's
+        # DYNAMIC init stamps at the window END (`DynamicInitializer.cpp`),
+        # so its estimate file has no backdated rows (the static path
+        # does backdate, matching the reference's static behaviour).
+        for pt in [tt for tt in all_times if pose_times[0] < tt <= t]:
+            self._propagate_clone(pt)
+            self._marginalize(pt)
+        # drop observations older than the window start; keep the rest
+        self.db.cleanup_older_than(pose_times[0] - 1e-9)
+        return True
+
     def _window_disparity_small(self, window: float) -> bool:
         """Mean feature displacement across the init window < threshold."""
         if not self._imu_t:
@@ -488,8 +624,10 @@ class VioManager:
             for i, fid in enumerate(ids):
                 self.db.update_feature(int(fid), t, cam, float(uvs[i, 0]), float(uvs[i, 1]))
         if not self.is_initialized:
-            if self.cfg.use_static_init:
-                self._try_static_init()
+            if self.cfg.use_static_init and self._try_static_init():
+                return
+            if self.cfg.use_dynamic_init:
+                self._try_dynamic_init(t)
             return
         if t <= self._time_host:
             # out-of-order frame: warn + drop (`VioManager.cpp:329-334`)

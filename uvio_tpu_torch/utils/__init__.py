@@ -1,3 +1,4 @@
+from .config import load_config
 from .logger import (
     get_verbosity,
     print_all,
@@ -9,6 +10,7 @@ from .logger import (
 )
 
 __all__ = [
+    "load_config",
     "set_verbosity",
     "get_verbosity",
     "print_all",
