@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and run its raw-image -> pose step, its
-UWB + SLAM filter step, its live host loop (the managers) and its image
-trackers feeding that loop on one NVIDIA GPU: the quickest proof that
+UWB + SLAM filter step, its live host loop (the managers, fused and
+staged), its image trackers feeding that loop, and its bundle adjustment
+and map backend on one NVIDIA GPU: the quickest proof that
 `uvio_tpu_torch` works on the card.
 
     python3 chip_smoke.py
@@ -83,7 +84,15 @@ Phases, each printing one JSON line:
               launch per `feed`; printed: ms per `feed` (host clock to its one
               read-back) beside the manager's ms per frame, and, from the
               tracker alone on 12 of the frames, host syncs (exactly 1, the
-              read-back) and kernel launches per `feed`. (b) A stereo rig (baseline 0.11 m, seed 3)
+              read-back) and kernel launches per `feed`. The same tracker
+              output also feeds a staged twin of the manager
+              (`fused_step=False`, otherwise equal; both consume the one
+              `feed`'s launches) under the same gates (>= 100 initialized
+              frames, ATE < 0.15 m and < 2.5 deg, cov_ok at every stage);
+              printed: its ATE beside the fused one, the mean of each
+              `last_timing` stage, host syncs per staged frame on 5 frames,
+              the largest position difference between the two.
+              (b) A stereo rig (baseline 0.11 m, seed 3)
               through `StereoKLTTracker` into a two-camera `VioManager`, 30
               frames: >= 10 stereo matches a frame, median |disparity| in
               (2, 20) px, cov_ok, final position within 0.5 m, 1 fast9 + 2
@@ -118,6 +127,28 @@ Phases, each printing one JSON line:
               regression against the C++ estimator's own output: SE(3) ATE
               <= `ref_est.txt`'s, final anchor error <= `anchors_est.txt`'s;
               cov_ok on every step; ms per frame (`last_timing`).
+ 13. backend — bundle adjustment and the map backend, float64, and the
+              staged managers against `uvio_tpu`. (b) The scenario of
+              tests/test_map_backend.py:45 (seed 11, a 16 s circle, 50
+              points, 10 Hz camera, 11 clones) through a staged `VioManager`
+              into `MapBackend(every_n_frames=3, max_keyframes=48,
+              lm_bucket=64)`, then `refine()`: >= 20 keyframes, the cost
+              does not rise, median keyframe position error < 0.05 m against
+              the ground-truth camera centres, >= 20 points with median error
+              < 0.05 m. (c) `ba_solve` at the backend's full capacity: 64
+              keyframes on an arc around 4096 landmarks (tests/test_ba.py's
+              scene), 10 iterations, on the card and on the card machine's
+              CPU: per-iteration costs within 1e-9 relative, parameters
+              within 1e-8, no host sync inside the solve; printed: ms per
+              solve (host clock to its one read-back, 3 warm solves), kernel
+              launches per solve. (d) `bench.py`'s scenario (seed 7, 4
+              anchors with online calibration, 25 SLAM slots) through the
+              staged `UVioManager`, 20 warm-up frames and 60 more, against
+              `uvio_tpu`'s staged run (`fixtures/staged_seed7.npz`): every
+              MSCKF, SLAM and UWB decision equal, position within 1e-6 m and
+              trace(cov) within 1e-6 relative on every frame; printed: the
+              mean of each stage, host syncs on the last 5 frames. None of
+              it runs a hand kernel.
 Then the kernel table (with each kernel's bound: the larger of its bytes
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted from
 this run's inputs; `launches` summed over the slice, the tracker runs and
@@ -127,7 +158,7 @@ result line. Needs no network; any failed check raises.
     python3 chip_smoke.py --phases init,streams
 
 runs only the named phases (comma list of kernels, slice, full_step,
-manager, tracker, init, streams; default all): the card and build phases
+manager, tracker, init, streams, backend; default all): the card and build phases
 always run, and the kernel table is printed only with `kernels`.
 """
 
@@ -1056,11 +1087,22 @@ def hooked_cov_ok(mgr):
     return seen
 
 
+def syncs_of(run):
+    """(host syncs, their sources) that `run()` makes, by
+    `set_sync_debug_mode("warn")`."""
+    with SyncCounter() as c:
+        run()
+        c.on_frame(0, 0.0)
+    return c.per_frame[0], c.sources
+
+
 def tracker_mono_hard(K, card):
     """Raw hard frames -> KLTTracker -> VioManager (static init + ZUPT) ->
     posyaw ATE on the card, with the gates of the reference's regression;
-    then the tracker alone on 12 of the frames for its host syncs and
-    kernel launches per `feed`. Returns (launch counts, camera, frames)."""
+    the same tracker output also feeds a staged twin of the manager
+    (`fused_step=False`, otherwise equal) under the same gates. Then the
+    tracker alone on 12 of the frames for its host syncs and kernel
+    launches per `feed`. Returns (launch counts, camera, frames)."""
     import numpy as np
     import torch
 
@@ -1078,21 +1120,29 @@ def tracker_mono_hard(K, card):
     def make_tracker():
         return KLTTracker(cam.intrinsics, cam.model, num_features=150, grid=(6, 8), histeq="HISTOGRAM")
 
-    mgr = VioManager(VioConfig(
-        max_clones=11, max_msckf_in_update=40, sigma_pix=2.0, use_static_init=True, try_zupt=True,
-        zupt_max_disparity=0.0, init_options=StaticInitOptions(wait_for_jerk=False),
-        cameras=[CameraConfig(model=cam.model, intrinsics=cam.intrinsics, q_ItoC=cam.q_ItoC,
-                              p_IinC=cam.p_IinC)]))
+    def make_mgr(fused_step):
+        return VioManager(VioConfig(
+            max_clones=11, max_msckf_in_update=40, sigma_pix=2.0, use_static_init=True, try_zupt=True,
+            zupt_max_disparity=0.0, init_options=StaticInitOptions(wait_for_jerk=False),
+            cameras=[CameraConfig(model=cam.model, intrinsics=cam.intrinsics, q_ItoC=cam.q_ItoC,
+                                  p_IinC=cam.p_IinC)], fused_step=fused_step))
+
+    mgr, staged = make_mgr(True), make_mgr(False)
     cov_ok = hooked_cov_ok(mgr)
+    staged_cov_ok, check = [], staged._check_cov_ok
+    staged._check_cov_ok = lambda ok, where: (staged_cov_ok.append(bool(ok)), check(ok, where))
     tracker = make_tracker()
-    if tracker.device != torch.device("cuda:0") or mgr.device != tracker.device:
-        raise RuntimeError(f"tracker on {tracker.device}, manager on {mgr.device}")
+    if tracker.device != torch.device("cuda:0") or {mgr.device, staged.device} != {tracker.device}:
+        raise RuntimeError(f"tracker on {tracker.device}, managers on {mgr.device}, {staged.device}")
     est = {"t": [], "q": [], "p": []}
+    est_s = {"t": [], "q": [], "p": []}
     n_tracks, feed_ms, mgr_ms, per_feed = [], [], [], []
+    staged_rows, staged_syncs, staged_sync_src, pos_diff = [], [], set(), 0.0
     K.reset_launch_counts()
     for kind, ev in events:
         if kind == "imu":
             mgr.feed_imu(*ev)
+            staged.feed_imu(*ev)
             continue
         tc, img = ev
         before = dict(K.launch_counts)
@@ -1102,16 +1152,31 @@ def tracker_mono_hard(K, card):
         per_feed.append(tuple(K.launch_counts[k] - before[k] for k in ("fast9", "lk_track", "lk_level")))
         n_tracks.append(len(ids))
         mgr.feed_features(tc, [(ids, uvs)])
-        if mgr.is_initialized:
-            if mgr.last_timing:
-                mgr_ms.append(mgr.last_timing["total"] * 1e3)
-            q, p = mgr.get_pose()
-            est["t"].append(tc), est["q"].append(q), est["p"].append(p)
+        if 150 <= len(n_tracks) < 155:  # a few frames in motion: the staged path's syncs
+            n, src = syncs_of(lambda: staged.feed_features(tc, [(ids, uvs)]))
+            staged_syncs.append(n)
+            staged_sync_src.update(src)
+        else:
+            staged.feed_features(tc, [(ids, uvs)])
+        for m, e in ((mgr, est), (staged, est_s)):
+            if m.is_initialized:
+                q, p = m.get_pose()
+                e["t"].append(tc), e["q"].append(q), e["p"].append(p)
+        if mgr.is_initialized and mgr.last_timing:
+            mgr_ms.append(mgr.last_timing["total"] * 1e3)
+        if staged.is_initialized and staged.last_timing and staged.last_timing["timestamp"] == tc:
+            staged_rows.append(dict(staged.last_timing))
+        if mgr.is_initialized and staged.is_initialized:
+            pos_diff = max(pos_diff, float(np.abs(est["p"][-1] - est_s["p"][-1]).max()))
     launches = dict(K.launch_counts)
-    t = np.asarray(est["t"])
-    res = ate(t, np.asarray(est["q"], np.float64), np.asarray(est["p"], np.float64), t,
-              np.asarray([gt[x][0] for x in est["t"]]), np.asarray([gt[x][1] for x in est["t"]]),
-              method="posyaw")
+
+    def posyaw(e):
+        t = np.asarray(e["t"])
+        return ate(t, np.asarray(e["q"], np.float64), np.asarray(e["p"], np.float64), t,
+                   np.asarray([gt[x][0] for x in e["t"]]), np.asarray([gt[x][1] for x in e["t"]]),
+                   method="posyaw")
+
+    res, res_s = posyaw(est), posyaw(est_s)
     cov_ok_all = all(bool(x.item()) for x in cov_ok)
     one_and_one = per_feed[0] == (1, 0, 0) and all(x == (1, 1, 0) for x in per_feed[1:])
 
@@ -1135,12 +1200,28 @@ def tracker_mono_hard(K, card):
            "fast9_lk_track_lk_level_launches_per_feed": sorted(set(per_feed[1:])),
            "first_feed_launches": per_feed[0], "launches": launches,
            "host_syncs_per_feed": syncs.per_frame, "sync_sources": syncs.sources,
-           "kernel_launches_per_feed": n_launch / 5, "card": card}
+           "kernel_launches_per_feed": n_launch / 5,
+           "kernel_launches_consumed_by": ["VioManager (fused)", "VioManager (staged)"], "card": card}
     log(rec)
+    keys = ("uwb", "propagation", "msckf", "slam", "marginalization", "total")
+    rec_s = {"phase": "tracker", "part": "mono, hard frames -> the same KLTTracker output -> staged VioManager "
+             "(fused_step=False, static init + ZUPT)", "initialized_frames": res_s["n"],
+             "ate_posyaw_rmse_pos_m": res_s["rmse_pos"], "ate_posyaw_rmse_ori_deg": res_s["rmse_ori_deg"],
+             "fused_ate_posyaw_rmse_pos_m": res["rmse_pos"], "fused_ate_posyaw_rmse_ori_deg": res["rmse_ori_deg"],
+             "cov_ok_all_stages": all(staged_cov_ok), "cov_checks": len(staged_cov_ok),
+             "staged_frames_timed": len(staged_rows),
+             "stage_ms_mean": {k: statistics.fmean(r[k] for r in staged_rows) * 1e3 for k in keys},
+             "fused_frame_ms_mean": statistics.fmean(mgr_ms),
+             "host_syncs_per_staged_frame": staged_syncs, "staged_sync_sources": sorted(staged_sync_src),
+             "max_position_diff_staged_vs_fused_m": pos_diff, "card": card}
+    log(rec_s)
     if not (res["n"] >= 100 and min(n_tracks[3:]) >= 15 and res["rmse_pos"] < 0.15
             and res["rmse_ori_deg"] < 2.5 and cov_ok_all and len(cov_ok) >= 100 and one_and_one
             and syncs.per_frame == [1] * 5):
         raise RuntimeError("the hard mono tracker run failed its gates")
+    if not (res_s["n"] >= 100 and res_s["rmse_pos"] < 0.15 and res_s["rmse_ori_deg"] < 2.5
+            and all(staged_cov_ok) and len(staged_cov_ok) >= 100):
+        raise RuntimeError("the staged manager on the hard frames failed its gates")
     return launches, cam, frames
 
 
@@ -1642,7 +1723,201 @@ def streams_phase(card):
         raise RuntimeError("the vendored UWB stream failed the C++ reference's gates")
 
 
-PHASES = ("kernels", "slice", "full_step", "manager", "tracker", "init", "streams")
+def backend_map(card):
+    """The live map backend on the card (module docstring, phase 13 (b)):
+    the scenario of tests/test_map_backend.py:45 through a staged float64
+    `VioManager` into `MapBackend`, then `refine()`, under that test's
+    gates."""
+    import numpy as np
+    import torch
+
+    from uvio_tpu_torch.manager import CameraConfig, VioConfig, VioManager
+    from uvio_tpu_torch.math import quat_to_rot
+    from uvio_tpu_torch.parallel import MapBackend, MapBackendOptions
+    from uvio_tpu_torch.sim import SimParams, Simulator, circle_trajectory
+
+    sim = Simulator(SimParams(sim_freq_imu=200.0, sim_freq_cam=10.0, num_pts=50, seed=11),
+                    trajectory=circle_trajectory(duration=16.0))
+    cam = sim.params.cameras[0]
+    mgr = VioManager(VioConfig(
+        max_clones=11, max_msckf_in_update=40, sigma_pix=sim.params.sigma_pix, fused_step=False,
+        cameras=[CameraConfig(model=cam.model, intrinsics=cam.intrinsics, q_ItoC=cam.q_ItoC, p_IinC=cam.p_IinC)]))
+    backend = MapBackend(MapBackendOptions(every_n_frames=3, max_keyframes=48, lm_bucket=64))
+    if mgr.device != torch.device("cuda:0") or backend.device != mgr.device:
+        raise RuntimeError(f"manager on {mgr.device}, backend on {backend.device}")
+    g0 = sim.get_gt_state(sim.t_start)
+    mgr.initialize_with_gt(sim.t_start, g0["q_GtoI"], g0["p_IinG"], g0["v_IinG"], g0["bg"], g0["ba"])
+    R_ItoC = quat_to_rot(torch.as_tensor(cam.q_ItoC)).numpy()
+    gt_cam_p, frames, ingest_ms, frame_ms = {}, 0, [], []
+    t0 = time.perf_counter()
+    while sim.ok():
+        r = sim.get_next_imu()
+        if r is None:
+            break
+        mgr.feed_imu(*r)
+        if sim.cur_cam_t + 1.0 / sim.params.sim_freq_cam <= r[0]:
+            rc = sim.get_next_cam()
+            if rc is None:
+                break
+            mgr.feed_features(*rc)
+            frames += 1
+            frame_ms.append(mgr.last_timing["total"] * 1e3)
+            t1 = time.perf_counter()
+            if backend.ingest(mgr):
+                ingest_ms.append((time.perf_counter() - t1) * 1e3)
+                g = sim.get_gt_state(rc[0])
+                R_GtoI = quat_to_rot(torch.as_tensor(g["q_GtoI"])).numpy()
+                gt_cam_p[rc[0]] = g["p_IinG"] - R_GtoI.T @ (R_ItoC.T @ cam.p_IinC)
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = backend.refine()  # returns after its read-backs
+    refine_ms = (time.perf_counter() - t0) * 1e3
+    costs = res["costs"]
+    kf_err = np.linalg.norm(res["kf_p"] - np.asarray([gt_cam_p[t] for t in res["kf_t"]]), axis=1)
+    errs = np.asarray([np.linalg.norm(p - sim.map_pts[fid]) for fid, p in res["points"].items()])
+    rec = {"phase": "backend", "part": "staged VioManager (float64) -> MapBackend -> refine, "
+           "the scenario of tests/test_map_backend.py:45", "frames": frames,
+           "keyframes": backend.num_keyframes, "points": len(errs), "cost_first": float(costs[0]),
+           "cost_last": float(costs[-1]), "kf_err_median_m": float(np.median(kf_err)),
+           "landmark_err_median_m": float(np.median(errs)), "refine_ms_first_call": refine_ms,
+           "ingest_ms_median": statistics.median(ingest_ms), "staged_frame_ms_mean": statistics.fmean(frame_ms),
+           "run_s": run_s, "card": card}
+    log(rec)
+    if not (backend.num_keyframes >= 20 and costs[-1] <= costs[0] and np.median(kf_err) < 0.05
+            and len(errs) >= 20 and np.median(errs) < 0.05):
+        raise RuntimeError("the map backend failed its gates")
+
+
+def ba_scene(N, L, seed=3):
+    """`tests/test_ba.py`'s scene at any size: N keyframes on an arc looking
+    at L landmarks in a 3 m cube, 0.5 px noise at f = 450, then perturbed
+    (0.02 rad, 5 cm, 10 cm; the first keyframe exact). Returns (q0, p0,
+    lm0, obs, mask) as numpy."""
+    import numpy as np
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from uvio_tpu_torch.math import rot_to_quat
+
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 1.2, N)
+    p = np.stack([3 * np.cos(th), 3 * np.sin(th), 0.1 * th], axis=1)
+    lm = rng.uniform(-1.5, 1.5, (L, 3))
+    z = -p / np.linalg.norm(p, axis=1, keepdims=True)
+    x = np.cross([0, 0, 1.0], z)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    R = np.stack([x, np.cross(z, x), z], axis=1)  # R_GtoC
+    pc = np.einsum("nij,lnj->lni", R, lm[:, None] - p[None])
+    obs = pc[..., :2] / pc[..., 2:3] + (0.5 / 450.0) * rng.standard_normal((L, N, 2))
+    mask = (pc[..., 2] > 0.5) & (np.abs(obs) < 0.9).all(-1)
+    dR = Rotation.from_rotvec(0.02 * rng.standard_normal((N, 3))).as_matrix()
+    dR[0] = np.eye(3)
+    q0 = rot_to_quat(torch.as_tensor(dR @ R)).numpy()
+    p0 = p + np.concatenate([np.zeros((1, 3)), 0.05 * rng.standard_normal((N - 1, 3))])
+    return q0, p0, lm + 0.1 * rng.standard_normal(lm.shape), obs, mask
+
+
+def backend_ba(card):
+    """BA at the backend's full capacity (module docstring, phase 13 (c)):
+    N = 64 keyframes, L = 4096 landmarks, 10 iterations, float64, on the
+    card against the card machine's CPU; ms per solve, launches and host
+    syncs."""
+    import numpy as np
+    import torch
+
+    from uvio_tpu_torch.parallel.ba import BAOptions, ba_solve
+
+    N, L, iters = 64, 4096, 10
+    scene = ba_scene(N, L)
+    on = lambda dev: [torch.as_tensor(a, dtype=torch.bool if a.dtype == bool else torch.float64, device=dev)
+                      for a in scene]
+    args_d, opts = on("cuda:0"), BAOptions(iters=iters)
+    solve = lambda: ba_solve(*args_d, opts)
+    ba_solve(*args_d, BAOptions(iters=1))[3]["costs"].cpu()  # first use of the solver libraries
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = solve()
+        out[3]["costs"].cpu()  # the one read-back
+        ms.append((time.perf_counter() - t0) * 1e3)
+    n_syncs, sources = syncs_of(solve)
+    launches, graphs, _ = kernel_launches(solve)
+    t0 = time.perf_counter()
+    ref = ba_solve(*on("cpu"), opts)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    costs, costs_ref = out[3]["costs"].cpu().numpy(), ref[3]["costs"].numpy()
+    cost_rel = float(np.abs(costs / costs_ref - 1.0).max())
+    param_diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(out[:3], ref[:3]))
+    # float64 Jacobians Jp (L,N,2,6) and Jl, blocks Hpl (L,N,6,3), B and B A^-1 (L,6N,3)
+    work_bytes = 8 * (L * N * 12 + L * N * 6 + L * N * 18 + 2 * L * 6 * N * 3)
+    rec = {"phase": "backend", "part": f"ba_solve N={N} L={L} iters={iters} float64, card vs CPU",
+           "observations": int(scene[4].sum()), "cost_first": float(costs[0]), "cost_last": float(costs[-1]),
+           "cost_rel_diff_max": cost_rel, "param_abs_diff_max": param_diff,
+           "ms_per_solve_median": statistics.median(ms), "ms_per_solve": ms, "cpu_ms_per_solve": cpu_ms,
+           "kernel_launches_per_solve": launches, "graph_launches_per_solve": graphs,
+           "host_syncs_in_solve": n_syncs, "sync_sources": sources,
+           "jacobian_schur_gb": work_bytes / 1e9, "card": card}
+    log(rec)
+    if not (cost_rel <= 1e-9 and param_diff <= 1e-8 and n_syncs == 0 and costs[-1] < costs[0]):
+        raise RuntimeError("BA on the card failed its gates")
+
+
+def backend_staged_fixture(card):
+    """`bench.py`'s scenario through the staged `UVioManager` on the card
+    against `uvio_tpu`'s staged run (module docstring, phase 13 (d))."""
+    import numpy as np
+    import torch
+
+    from uvio_tpu_torch.eval.capture import bench_scenario, drive
+    from uvio_tpu_torch.fixtures import (STAGED_FRAMES, STAGED_WARM, load_staged_fixture, staged_differences,
+                                         staged_record)
+
+    ref = load_staged_fixture()
+    sim, mgr = bench_scenario(STAGED_WARM + 100, seed=7, max_slam=25, dtype="float64", fused_step=False)
+    if mgr.device != torch.device("cuda:0"):
+        raise RuntimeError(f"the manager runs on {mgr.device}")
+    drive(sim, mgr, STAGED_WARM)
+    recs, before, rows, syncs, sources = [], [mgr.__dict__.get("last_msckf_info")], [], [], set()
+
+    def on_frame(k, tc):
+        recs.append(staged_record(mgr, tc, lambda x: x.cpu().numpy(), before[0]))
+        before[0] = mgr.__dict__.get("last_msckf_info")
+        rows.append(dict(mgr.last_timing))
+
+    t0 = time.perf_counter()
+    drive(sim, mgr, STAGED_FRAMES - 5, on_frame=on_frame)
+    for _ in range(5):  # the last frames one by one, their host syncs counted
+        n, src = syncs_of(lambda: drive(sim, mgr, 1, on_frame=on_frame))
+        syncs.append(n)
+        sources.update(src)
+    run_s = time.perf_counter() - t0
+    got = {k: np.stack([r[k] for r in recs]) for k in recs[0]}
+    d = staged_differences(got, ref)
+    keys = ("uwb", "propagation", "msckf", "slam", "marginalization", "total")
+    rec = {"phase": "backend", "part": "bench.py's scenario, staged UVioManager (float64) vs uvio_tpu's staged "
+           "run (fixtures/staged_seed7.npz)", "frames": len(got["t"]), "position_diff_max_m": d["p_m"],
+           "quaternion_diff_max": d["q"], "cov_trace_rel_diff_max": d["cov_trace_rel"],
+           "decisions_differ": d["decisions"], "msckf_updates": int(got["msckf_ran"].sum()),
+           "uwb_ranges_accepted_last_set": int(got["uwb_accepted"].sum()),
+           "slam_slots_full_at_end": int((got["slam_fid"][-1] >= 0).sum()),
+           "stage_ms_mean": {k: statistics.fmean(r[k] for r in rows) * 1e3 for k in keys},
+           "host_syncs_per_frame": syncs, "sync_sources": sorted(sources), "run_s": run_s, "card": card}
+    log(rec)
+    if not (len(got["t"]) == len(ref["t"]) and not d["decisions"] and d["p_m"] <= 1e-6
+            and d["cov_trace_rel"] <= 1e-6):
+        raise RuntimeError("the staged UVioManager differs from uvio_tpu's staged run")
+
+
+def backend_phase(card):
+    """Bundle adjustment, the map backend and the staged managers on the
+    card (module docstring, phase 13)."""
+    backend_map(card)
+    backend_ba(card)
+    backend_staged_fixture(card)
+
+
+PHASES = ("kernels", "slice", "full_step", "manager", "tracker", "init", "streams", "backend")
 
 
 def main(argv=None):
@@ -1720,6 +1995,9 @@ def main(argv=None):
     if "streams" in phases:
         streams_phase(card)
         done("streams")
+    if "backend" in phases:
+        backend_phase(card)
+        done("backend")
 
     log({"phase": "total", "seconds": time.perf_counter() - t_start, "phase_seconds": seconds})
     if kernels is not None:

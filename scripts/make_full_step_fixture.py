@@ -80,8 +80,9 @@ def _ground_truth(stamps):
     return np.stack([sim.get_gt_state(float(t))["p_IinG"] for t in stamps])
 
 
-def _manager(sim):
-    """The capture's `UVioManager` (`uvio_tpu/eval/capture.py`), float64."""
+def _manager(sim, **overrides):
+    """The capture's `UVioManager` (`uvio_tpu/eval/capture.py`), float64;
+    `overrides` are further `UVioConfig` fields."""
     from uvio_tpu.manager import CameraConfig
     from uvio_tpu.uwb_manager import AnchorConfig, UVioConfig, UVioManager
 
@@ -97,7 +98,7 @@ def _manager(sim):
         cameras=[CameraConfig(model=cam.model, intrinsics=cam.intrinsics, q_ItoC=cam.q_ItoC,
                               p_IinC=cam.p_IinC)],
         max_anchors=len(anchors), anchors=anchors, sigma_range=sim.params.sigma_range,
-        dtype="float64",
+        dtype="float64", **overrides,
     ))
 
 

@@ -4,7 +4,7 @@ import importlib
 
 import pytest
 
-SUBPACKAGES = ["cam", "eval", "filter", "frontend", "init", "math", "sim", "types", "update", "utils"]
+SUBPACKAGES = ["cam", "eval", "filter", "frontend", "init", "math", "parallel", "sim", "types", "update", "utils"]
 
 
 @pytest.mark.parametrize("name", SUBPACKAGES)

@@ -215,3 +215,19 @@ def test_oldest_clone_slot_matches(head):
     ts = _port(js)
     assert int(t_old(ts, TLayout(**LAYOUT_KW))) == int(j_old(js, layout)) == 1
     assert int(t_num(ts)) == int(j_num(js)) == head + 1
+
+
+@pytest.mark.parametrize("slot", [0, 3])
+def test_marginalize_clone_int_slot_is_bit_equal(slot):
+    """The slot as a Python int (no index upload) and as a tensor give the
+    same state bit for bit."""
+    from uvio_tpu_torch.filter.ekf import marginalize_clone as t_marg
+    from uvio_tpu_torch.types.state import FIELDS, state_to_numpy
+
+    _, js = _random_state(2, head=4)
+    ts, tl = _port(js), TLayout(**LAYOUT_KW)
+    a = state_to_numpy(t_marg(ts, tl, torch.as_tensor(slot)))
+    b = state_to_numpy(t_marg(ts, tl, slot))
+    for n in FIELDS:
+        np.testing.assert_array_equal(b[n], a[n], err_msg=n)
+    assert not b["clones_valid"][slot] and a["clones_valid"].sum() == state_to_numpy(ts)["clones_valid"].sum() - 1

@@ -91,13 +91,16 @@ def assert_states_close(jstate, tstate, where, atol=1e-8):
 
 class Pair:
     """A `uvio_tpu` manager and the port's, fed together; records the
-    bundles each hands to its step and compares everything after a frame."""
+    bundles each hands to its fused step (staged managers hand none) and
+    compares everything after a frame."""
 
     def __init__(self, jmgr, tmgr):
         self.j, self.t = jmgr, tmgr
         self.jb, self.tb = [], []
         self.zupt_accepts = []
         self.checked = 0
+        if not tmgr.cfg.fused_step:
+            return
         j_full, t_full = jmgr._jit_full, tmgr._jit_full
 
         def j_hook(state, fb):
@@ -227,13 +230,14 @@ def test_constructor_seeds_and_priors_match(flags):
 
 @pytest.mark.parametrize("flag", [dict(use_dynamic_init=True), dict(fused_step=False)], ids=lambda f: next(iter(f)))
 def test_unported_paths_raise(flag):
-    """The staged path is not ported and raises; the in-motion
-    initializer, which raised here too before it was ported, builds."""
+    """Both paths that raised here before they were ported now build: the
+    in-motion initializer, and the staged path (its stages, and no fused
+    step)."""
+    mgr = VioManager(VioConfig(device="cpu", **flag))
     if "use_dynamic_init" in flag:
-        assert VioManager(VioConfig(device="cpu", **flag)).cfg.use_dynamic_init
+        assert mgr.cfg.use_dynamic_init
         return
-    with pytest.raises(NotImplementedError, match=next(iter(flag))):
-        VioManager(VioConfig(device="cpu", **flag))
+    assert not hasattr(mgr, "_jit_full") and callable(mgr._stage_msckf) and callable(mgr._stage_prop)
 
 
 def test_device_none_is_the_card_or_an_error():

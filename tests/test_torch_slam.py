@@ -289,3 +289,22 @@ def test_marginalize_slam_and_block_init_match():
            TE.set_block_covariance(_t(cov), off, block), 0.0)
     blocks = [(L.slam_slot_off(2), 3), (0, 6)]
     _close(JE.get_marginal_covariance(jnp.asarray(cov), blocks), TE.get_marginal_covariance(_t(cov), blocks), 0.0)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4, 5])
+def test_anchor_change_int_slot_is_bit_equal(fx, rep):
+    """`marg_slot` as a Python int (the manager's path, no index upload)
+    gives the tensor path's state bit for bit."""
+    frame = 16
+    marg = int(fx.bundles[frame]["marg_slot"])
+    snap = fx.snapshots[frame]
+    anchors = np.where(np.arange(25) % 2 == 0, marg, snap["slam_anchor_slot"])
+    _, arrays = _state_in_rep(fx, frame, rep, anchors)
+    ts = state_from_numpy(arrays, device="cpu", dtype=T64)
+    tl = _tlayout(fx.config, rep)
+    new = torch.tensor(int(snap["clone_head"]))
+    a = state_to_numpy(TR.anchor_change(ts, tl, torch.tensor(marg), new))
+    b = state_to_numpy(TR.anchor_change(ts, tl, marg, new))
+    for n in FIELDS:
+        np.testing.assert_array_equal(b[n], a[n], err_msg=n)
+    assert (b["slam_anchor_slot"][arrays["slam_valid"] & (anchors == marg)] == int(new)).all()

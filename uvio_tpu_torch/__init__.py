@@ -11,8 +11,9 @@ Conventions:
     which is `cuda:0` or a `RuntimeError` — never a quiet CPU (the CPU
     parity tests pass `device="cpu"`); every random draw takes an
     explicit `torch.Generator` (or the noise itself, for parity tests);
-  * `vmap` is a written-out batch dimension, `lax.fori_loop` a Python
-    loop with a fixed count;
+  * `vmap` is a written-out batch dimension (except
+    `pipeline.make_batched_step`, `torch.func.vmap` of the single-sequence
+    step), `lax.fori_loop` a Python loop with a fixed count;
   * inside the per-frame step nothing synchronises with the host (no
     `.item()`, no `bool(tensor)`), so the step can later be captured in
     a CUDA graph.

@@ -33,10 +33,11 @@ UWB_ANCHORS = {
 
 
 def bench_scenario(n_frames: int, seed: int = 7, max_slam: int = 25, dtype: str = "float32",
-                   device=None):
+                   device=None, fused_step: bool = True):
     """(sim, mgr): the benchmark's simulator (200 Hz IMU, 10 Hz camera,
     20 Hz UWB, a circle long enough for `n_frames`) and a UVioManager on
-    `device` (None: the card) initialized at the simulator's first state."""
+    `device` (None: the card) initialized at the simulator's first state;
+    `fused_step=False` gives the staged manager."""
     sim = Simulator(
         SimParams(sim_freq_imu=200.0, sim_freq_cam=10.0, num_pts=60, seed=seed,
                   uwb_anchors=UWB_ANCHORS),
@@ -64,6 +65,7 @@ def bench_scenario(n_frames: int, seed: int = 7, max_slam: int = 25, dtype: str 
         sigma_range=sim.params.sigma_range,
         dtype=dtype,
         device=device,
+        fused_step=fused_step,
     )
     mgr = UVioManager(cfg)
     gt0 = sim.get_gt_state(sim.t_start)

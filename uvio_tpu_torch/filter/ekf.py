@@ -179,11 +179,12 @@ def augment_clone(state: FilterState, layout: StateLayout, w_hat: torch.Tensor) 
     )
 
 
-def marginalize_clone(state: FilterState, layout: StateLayout, slot: torch.Tensor) -> FilterState:
-    """Drop a clone: invalidate the slot and zero its covariance rows and
-    columns (`StateHelper::marginalize` under the slot-pool design)."""
+def marginalize_clone(state: FilterState, layout: StateLayout, slot) -> FilterState:
+    """Drop a clone: invalidate the slot (an int or a device tensor) and
+    zero its covariance rows and columns (`StateHelper::marginalize` under
+    the slot-pool design)."""
     cov = _zero_rows_cols(state.cov, _slot_index(layout.clone_off + 6 * slot, 6, state.cov.device))
-    onehot = torch.arange(layout.max_clones, device=slot.device) == slot
+    onehot = torch.arange(layout.max_clones, device=state.clones_valid.device) == slot
     return state.replace(
         cov=cov,
         clones_valid=state.clones_valid & ~onehot,

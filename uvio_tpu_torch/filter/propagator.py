@@ -218,7 +218,7 @@ def _f_and_g_analytic(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, xi, layou
     dv = new_v - v_k + gravity * dt[:, None]
 
     s = layout.imu_intr_dim
-    F = torch.zeros((n, 15, 15 + s), dtype=dtype, device=device)
+    F = dR.new_zeros((n, 15, 15 + s))
     F[:, 0:3, 0:3] = dR
     F[:, 3:6, 0:3] = -skew(dp) @ RkT
     F[:, 6:9, 0:3] = -skew(dv) @ RkT
@@ -263,7 +263,7 @@ def _f_and_g_analytic(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, xi, layou
             F[:, 3:6, th0 : th0 + 3] = P2w @ sa
             F[:, 6:9, th0 : th0 + 3] = P1w @ sa
 
-    G = torch.zeros((n, 15, 12), dtype=dtype, device=device)
+    G = dR.new_zeros((n, 15, 12))
     G[:, 0:3, 0:3] = -dRJrdt @ RwDw
     G[:, 3:6, 0:3] = P4 @ RwDw
     G[:, 6:9, 0:3] = P3 @ RwDw
@@ -291,7 +291,7 @@ def _f_and_g_discrete(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, layout, i
     dv = new_v - v_k + gravity * dt[:, None]
 
     s = layout.imu_intr_dim
-    F = torch.zeros((n, 15, 15 + s), dtype=dtype, device=device)
+    F = dR.new_zeros((n, 15, 15 + s))
     F[:, 0:3, 0:3] = dR
     F[:, 0:3, 9:12] = -dRJrdt @ RwDw
     F[:, 0:3, 12:15] = dRJrdt @ RwDw @ TgM @ RaDa
@@ -328,7 +328,7 @@ def _f_and_g_discrete(R_k, p_k, v_k, new_q, new_p, new_v, dt, gravity, layout, i
             F[:, 3:6, th0 : th0 + 3] = 0.5 * dt3 * dt3 * RkT @ sa
             F[:, 6:9, th0 : th0 + 3] = dt3 * RkT @ sa
 
-    G = torch.zeros((n, 15, 12), dtype=dtype, device=device)
+    G = dR.new_zeros((n, 15, 12))
     G[:, 0:3, 0:3] = -dRJrdt @ RwDw
     G[:, 0:3, 3:6] = dRJrdt @ RwDw @ TgM @ RaDa
     G[:, 3:6, 3:6] = -0.5 * dt3 * dt3 * RkT @ RaDa

@@ -4,24 +4,26 @@ Port of `uvio_tpu/manager.py` (the reference's
 `ov_msckf/src/core/VioManager.{h,cpp}`): builds the layout and state,
 buffers IMU, ingests feature tracks (the simulator's tracker or a real
 frontend), and runs one frame of `do_feature_propagate_update`
-(`VioManager.cpp:323-714`) as one call of `pipeline.full_filter_step`:
+(`VioManager.cpp:323-714`):
 
     [ZUPT attempt] -> [UWB drain] -> propagate+clone -> feature triage
     -> MSCKF update -> SLAM update/init -> marginalize oldest clone
 
-Host work per frame is O(features) dict bookkeeping and the padded numpy
-`FrameBundle`; the bundle goes to the device in one transfer
-(`pipeline.bundle_from_numpy`) and the host reads the frame's decisions
-back in one (`_fetch`). With `async_dispatch` and nothing for the host to
-decide, a frame reads nothing back at all.
+Two paths run it. The fused path (`fused_step=True`, the default) is one
+call of `pipeline.full_filter_step`: host work per frame is O(features)
+dict bookkeeping and the padded numpy `FrameBundle`; the bundle goes to
+the device in one transfer (`pipeline.bundle_from_numpy`) and the host
+reads the frame's decisions back in one (`_fetch`). With `async_dispatch`
+and nothing for the host to decide, a frame reads nothing back at all.
+The staged path (`fused_step=False`) calls each stage on its own
+(`_stage_*`: plain functions over the state) and reads each stage's
+decisions back before the next, as `uvio_tpu`'s staged path does; it
+times every stage (`last_timing`, synchronizing the card between stages).
 
 The clone window uses `max_clones + 1` ring slots: the reference lets the
 window grow to N+1 between `augment_clone` and the end-of-update
 marginalization (`VioManager.cpp:584-597`); the extra slot gives the same
 semantics with static shapes.
-
-Not ported: `fused_step=False` (the staged per-frame path with one
-dispatch per stage) raises `NotImplementedError` in the constructor.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import time as _time
 import warnings
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -45,15 +48,18 @@ from .filter.propagator import (
     select_imu_readings_np,
 )
 from .frontend.database import FeatureDatabase
+from .frontend.fused_vio import check_full_precision
 from .init.dynamic_init import DynamicInitOptions, result_to_state_first, solve_dynamic_init
 from .init.static_init import StaticInitOptions, try_static_init
 from .math import quat_to_rot
 from .pipeline import FullStepConfig, bundle_from_numpy, make_full_step, plan_frame
 from .types.layout import StateLayout
 from .types.state import FilterState, init_state
-from .update.msckf import clone_camera_poses
+from .update.msckf import clone_camera_poses, msckf_update
 from .update.representations import anchor_change, landmark_global
+from .update.slam import slam_delayed_init, slam_update
 from .update.triangulation import triangulate_batch
+from .update.zupt import zupt_explicit_update, zupt_try_update
 from .utils.checkpoint import load_state, save_state
 from .utils.logger import print_warning
 
@@ -137,8 +143,8 @@ class VioConfig:
     zupt_explicit: bool = False
     # run the whole frame (UWB drain + ZUPT + propagate/clone + MSCKF +
     # SLAM + marginalize) as ONE device step (pipeline.full_filter_step).
-    # False, the staged path with a host sync per stage, is not ported
-    # and raises.
+    # False = the staged path with one call and a host read-back per
+    # stage (kept for per-stage timing/debugging).
     fused_step: bool = True
     # defer device synchronization in the per-frame step: dispatch and
     # return without fetching results, so the host builds the next bundle
@@ -176,8 +182,6 @@ class VioManager:
         return {}
 
     def __init__(self, cfg: VioConfig):
-        if not cfg.fused_step:
-            raise NotImplementedError("fused_step=False: the staged per-frame path is not ported")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -271,9 +275,38 @@ class VioManager:
         self.slam_fail: Dict[int, int] = {}
         self.slam_consumed_t: Dict[int, float] = {}
 
+        # the stages, one call each (`uvio_tpu`'s `_jit_*`): the staged
+        # path runs them all; the init replay and the fused path's
+        # landmark drop use some
+        cam_model = cfg.cameras[0].model
+        self._stage_prop = partial(propagate_and_clone, layout=L, noises=cfg.noises,
+                                   gravity_mag=cfg.gravity_mag, integration=cfg.integration)
+        self._stage_msckf = partial(msckf_update, layout=L, cam_model=cam_model,
+                                    sigma_pix=cfg.sigma_pix, chi2_mult=cfg.chi2_mult)
+        self._stage_marg = partial(marginalize_clone, layout=L)
+        if cfg.max_slam > 0:
+            self._stage_slam_up = partial(slam_update, layout=L, cam_model=cam_model,
+                                          sigma_pix=cfg.sigma_pix, chi2_mult=cfg.chi2_mult)
+            self._stage_slam_init = partial(slam_delayed_init, layout=L, cam_model=cam_model,
+                                            sigma_pix=cfg.sigma_pix, chi2_mult=cfg.chi2_mult)
+            self._stage_marg_slam = partial(marginalize_slam, layout=L)
+        if cfg.try_zupt:
+            zupt = (partial(zupt_explicit_update, integration=cfg.integration)
+                    if cfg.zupt_explicit else zupt_try_update)
+            self._stage_zupt = partial(
+                zupt, layout=L, noises=cfg.noises, gravity_mag=cfg.gravity_mag,
+                chi2_mult=cfg.zupt_chi2_mult, noise_mult=cfg.zupt_noise_mult,
+                max_velocity=cfg.zupt_max_velocity,
+            )
+        self.last_zupt_info = None
+        if not cfg.fused_step:
+            check_full_precision()
+            return
+
+        # the fused full-frame step: one call per camera frame
         self._full_cfg = FullStepConfig(
             layout=L,
-            cam_model=cfg.cameras[0].model,
+            cam_model=cam_model,
             sigma_pix=cfg.sigma_pix,
             chi2_mult=cfg.chi2_mult,
             gravity_mag=cfg.gravity_mag,
@@ -635,7 +668,13 @@ class VioManager:
                 "image at t=%.6f is older than state time %.6f: dropped", t, self._time_host
             )
             return
-        self._frame_fused(t)
+        if self.cfg.fused_step:
+            self._frame_fused(t)
+            return
+        if self.cfg.try_zupt and self._try_zupt(t):
+            self._last_frame_t = t
+            return  # motion frozen: no clone, no visual update this frame
+        self._frame_staged(t)
 
     def _track_distance(self, p: np.ndarray):
         """Accumulate traveled distance after a completed visual update
@@ -664,9 +703,8 @@ class VioManager:
         returned infos (`do_feature_propagate_update` + UWB drain + ZUPT)."""
         t0h = _time.perf_counter()
         L, cfg = self.layout, self.cfg
-        K, C, S = L.max_clones, L.num_cams, L.max_slam
+        K, S = L.max_clones, L.max_slam
         M = L.max_imu_batch
-        Fc = cfg.max_slam_init_per_frame
         U = self._full_cfg.uwb_sets_per_frame
         A = L.max_anchors
 
@@ -759,31 +797,8 @@ class VioManager:
         feats = self._select_msckf_feats(t)
         uv_m, mask_m = self._build_obs(feats, cfg.max_msckf_in_update)
 
-        time_to_slot = {tt_: s for s, tt_ in self.slot_times.items()}
-        uv_s = np.zeros((S, K, C, 2))
-        mask_s = np.zeros((S, K, C), bool)
-        slam_any_obs = False
-        for fid, slot in self.slam_slot_by_fid.items():
-            f = self.db.features.get(fid)
-            cons = self.slam_consumed_t.get(fid, -np.inf)
-            for cam, lst in f.obs.items():
-                for (tt_, u, v) in lst:
-                    s = time_to_slot.get(tt_)
-                    if s is not None and tt_ > cons:
-                        uv_s[slot, s, cam] = (u, v)
-                        mask_s[slot, s, cam] = True
-                        slam_any_obs = True
-
-        cands = self._slam_candidates(t) if S > 0 else []
-        slots_c = np.zeros(Fc, np.int32)
-        fids_c = np.full(Fc, -1, np.int32)
-        used = set(self.slam_slot_by_fid.values())
-        free_slots = [s for s in range(S) if s not in used]
-        cands = cands[: min(len(free_slots), Fc)]
-        for i, f in enumerate(cands):
-            slots_c[i] = free_slots[i]
-            fids_c[i] = f.feat_id
-        uv_c, mask_c = self._build_obs(cands, Fc)
+        uv_s, mask_s, slam_any_obs = self._slam_reobs()
+        uv_c, mask_c, slots_c, fids_c = self._cand_rows(self._slam_candidates(t) if S > 0 else [])
 
         fields = dict(
             imu_t=tt, imu_w=ww, imu_a=aa,
@@ -871,21 +886,8 @@ class VioManager:
         # slam bookkeeping from infos
         if S > 0:
             if slam_any_obs:
-                for fid in list(self.slam_slot_by_fid):
-                    slot = self.slam_slot_by_fid[fid]
-                    self.slam_consumed_t[fid] = t
-                    if failed[slot]:
-                        self.slam_fail[fid] = self.slam_fail.get(fid, 0) + 1
-                        if self.slam_fail[fid] >= cfg.slam_fail_marg:
-                            f = self.db.features.get(fid)
-                            if f is not None:
-                                f.to_delete = True
-                            self._free_landmark(fid)
-                self.db.cleanup()
-            for i in range(Fc):
-                if fids_c[i] >= 0 and inited[i]:
-                    self.slam_slot_by_fid[int(fids_c[i])] = int(slots_c[i])
-                    self.slam_consumed_t[int(fids_c[i])] = t
+                self._count_slam_failures(failed, t)
+            self._adopt_inited(inited, fids_c, slots_c, t)
 
         # marginalization mirror (device already did anchor change + marg)
         if marg_enable:
@@ -897,6 +899,178 @@ class VioManager:
         self._last_frame_t = t
         self._time_host = float(t)
         self._track_distance(p)
+
+    def _frame_staged(self, t: float):
+        """One frame of the staged path (`uvio_tpu`'s non-fused branch of
+        `feed_features`): each stage is its own call, and the host reads
+        its decisions back before the next. On a CUDA device the card is
+        synchronized after each stage, so the `last_timing` row times the
+        stage and not its launch."""
+        sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" else (lambda: None)
+        t0 = _time.perf_counter()
+        self._pre_visual_update(t)
+        t1 = _time.perf_counter()
+        self._propagate_clone(t)
+        sync()
+        t2 = _time.perf_counter()
+        self._msckf_step(t)
+        sync()
+        t3 = _time.perf_counter()
+        if self.cfg.max_slam > 0:
+            self._slam_step(t)
+            sync()
+        t4 = _time.perf_counter()
+        self._marginalize(t)
+        t5 = _time.perf_counter()
+        # the frame's last read-back: the position (traveled distance) and
+        # the camera-IMU offset the EKF may have moved
+        host = torch.cat([self.state.p, self.state.calib_dt.reshape(1)]).cpu().numpy()
+        if self.cfg.calib_cam_timeoffset:
+            self._dt_host = float(host[3])
+        # per-stage wall times (the reference's timing CSV,
+        # VioManager.cpp:604-644); seconds per stage
+        self._record_timing({
+            "timestamp": t,
+            "uwb": t1 - t0,
+            "propagation": t2 - t1,
+            "msckf": t3 - t2,
+            "slam": t4 - t3,
+            "marginalization": t5 - t4,
+            "total": t5 - t0,
+        })
+        self._last_frame_t = t
+        self._time_host = float(t)
+        self._track_distance(host[:3].astype(np.float64))
+
+    def _try_zupt(self, t: float) -> bool:
+        """The staged zero-velocity attempt (IMU + disparity test); True =
+        motion frozen. `accepted` and the chi2 come back in one transfer."""
+        cfg = self.cfg
+        if cfg.zupt_only_at_beginning and self._has_moved:
+            return False
+        if cfg.zupt_max_disparity > 0 and not self._disparity_small(t):
+            return False
+        if t <= self._time_host:
+            return False
+        tt, ww, aa, dt_now = self._select_imu_window(t)
+        tt_d, ww_d, aa_d, stamp = self._window(tt, ww, aa, t)
+        new_state, accepted, gamma = self._stage_zupt(self.state, imu_t=tt_d, imu_w=ww_d, imu_a=aa_d,
+                                                      stamp_time=stamp)
+        acc, gam = torch.stack([accepted.to(torch.float64), gamma.to(torch.float64)]).cpu().tolist()
+        # observability: the reference prints the zupt chi2 each attempt
+        # (`UpdaterZeroVelocity.cpp` PRINT_DEBUG)
+        self.last_zupt_info = {"accepted": bool(acc), "gamma": gam, "n_imu": int((tt > tt[0]).sum()) + 1}
+        if acc:
+            self.state = new_state
+            self._time_host = float(t)
+            self._last_prop_dt = dt_now
+            # consumed: observations at this frozen frame can't be used
+            # later (no clone exists for t): drop them
+            self.db.cleanup_older_than(t + 1e-9)
+            return True
+        self._has_moved = True
+        return False
+
+    def _msckf_step(self, t: float):
+        """The staged MSCKF update over the triaged features; reads back
+        `cov_ok` and consumes the features it used."""
+        feats = self._select_msckf_feats(t)
+        if not feats:
+            return
+        uv, mask = self._build_obs(feats, self.cfg.max_msckf_in_update)
+        self.state, info = self._stage_msckf(self.state, obs_uv=self._on(uv), obs_mask=self._on(mask, torch.bool))
+        self._check_cov_ok(bool(info["cov_ok"]), "msckf update")
+        self.last_msckf_info = info
+        self._consume_msckf(feats)
+
+    def _slam_step(self, t: float):
+        """Staged SLAM landmark maintenance: dead-track drop, re-observation
+        update, failure accounting, delayed init of promoted max-track
+        features (`uvio_tpu/manager.py` `_slam_step`)."""
+        # 1) drop landmarks whose track died (reference marks should_marg)
+        for fid in list(self.slam_slot_by_fid):
+            f = self.db.features.get(fid)
+            if f is None or f.newest_time() < t:
+                self._free_landmark(fid)
+                if f is not None:
+                    f.to_delete = True
+        self.db.cleanup()
+
+        # 2) re-observation update with not-yet-consumed measurements;
+        # cov_ok and the failure flags in one transfer
+        uv, mask, any_obs = self._slam_reobs()
+        if any_obs:
+            self.state, info = self._stage_slam_up(self.state, obs_uv=self._on(uv), obs_mask=self._on(mask, torch.bool))
+            host = torch.cat([info["cov_ok"].reshape(1), info["failed"]]).cpu().numpy()
+            self._check_cov_ok(bool(host[0]), "slam update")
+            self._count_slam_failures(host[1:], t)
+
+        # 3) delayed init of promoted candidates into free slots
+        cands = self._slam_candidates(t)
+        if cands:
+            uv, mask, slots, fids = self._cand_rows(cands)
+            self.state, info = self._stage_slam_init(
+                self.state, obs_uv=self._on(uv), obs_mask=self._on(mask, torch.bool),
+                target_slots=self._on(slots, torch.int64), cand_ids=self._on(fids, torch.int64),
+            )
+            self._adopt_inited(info["inited"].cpu().numpy(), fids, slots, t)
+
+    def _slam_reobs(self):
+        """(uv (S,K,C,2), mask (S,K,C), any): each landmark's observations
+        at live clone times it has not consumed yet."""
+        L = self.layout
+        S, K, C = L.max_slam, L.max_clones, L.num_cams
+        time_to_slot = {tt: s for s, tt in self.slot_times.items()}
+        uv = np.zeros((S, K, C, 2))
+        mask = np.zeros((S, K, C), bool)
+        for fid, slot in self.slam_slot_by_fid.items():
+            f = self.db.features.get(fid)
+            cons = self.slam_consumed_t.get(fid, -np.inf)
+            for cam, lst in f.obs.items():
+                for (tt, u, v) in lst:
+                    s = time_to_slot.get(tt)
+                    if s is not None and tt > cons:
+                        uv[slot, s, cam] = (u, v)
+                        mask[slot, s, cam] = True
+        return uv, mask, bool(mask.any())
+
+    def _count_slam_failures(self, failed, t: float):
+        """After a re-observation update: every landmark consumed its
+        observations; a chi2 failure counts, and `slam_fail_marg` of them
+        free the landmark (`failed` (S,) on the host)."""
+        for fid in list(self.slam_slot_by_fid):
+            slot = self.slam_slot_by_fid[fid]
+            self.slam_consumed_t[fid] = t
+            if failed[slot]:
+                self.slam_fail[fid] = self.slam_fail.get(fid, 0) + 1
+                if self.slam_fail[fid] >= self.cfg.slam_fail_marg:
+                    f = self.db.features.get(fid)
+                    if f is not None:
+                        f.to_delete = True
+                    self._free_landmark(fid)
+        self.db.cleanup()
+
+    def _cand_rows(self, cands):
+        """The delayed-init rows of `cands` in free slots: (uv, mask,
+        target slots, feature ids with -1 padding), Fc rows each."""
+        Fc, S = self.cfg.max_slam_init_per_frame, self.layout.max_slam
+        used = set(self.slam_slot_by_fid.values())
+        free_slots = [s for s in range(S) if s not in used]
+        cands = cands[: min(len(free_slots), Fc)]
+        slots = np.zeros(Fc, np.int32)
+        fids = np.full(Fc, -1, np.int32)
+        for i, f in enumerate(cands):
+            slots[i] = free_slots[i]
+            fids[i] = f.feat_id
+        uv, mask = self._build_obs(cands, Fc)
+        return uv, mask, slots, fids
+
+    def _adopt_inited(self, inited, fids, slots, t: float):
+        """Record the landmarks the delayed init accepted."""
+        for i in range(len(fids)):
+            if fids[i] >= 0 and inited[i]:
+                self.slam_slot_by_fid[int(fids[i])] = int(slots[i])
+                self.slam_consumed_t[int(fids[i])] = t
 
     def _consume_msckf(self, feats):
         """MSCKF features are used once (the reference sets to_delete)."""
@@ -910,7 +1084,7 @@ class VioManager:
         to the frame's one read-back; dispatch alone on the async path),
         msckf/slam <- 0 (inside the step), marginalization <- host
         bookkeeping."""
-        self.last_timing = {
+        self._record_timing({
             "timestamp": t,
             "uwb": build_s,
             "propagation": device_s,
@@ -918,9 +1092,12 @@ class VioManager:
             "slam": 0.0,
             "marginalization": post_s,
             "total": build_s + device_s + post_s,
-        }
+        })
+
+    def _record_timing(self, row: dict):
+        """Keep the frame's timing row and append it to the timing CSV."""
+        self.last_timing = row
         if self._timing_file is not None:
-            row = self.last_timing
             self._timing_file.write(
                 f"{row['timestamp']:.9f},{row['uwb']:.6f},{row['propagation']:.6f},"
                 f"{row['msckf']:.6f},{row['slam']:.6f},{row['marginalization']:.6f},"
@@ -955,10 +1132,7 @@ class VioManager:
     def _propagate_clone(self, t: float):
         tt, ww, aa, dt_now = self._select_imu_window(t)
         tt, ww, aa, stamp = self._window(tt, ww, aa, t)
-        self.state = propagate_and_clone(
-            self.state, self.layout, tt, ww, aa, self.cfg.noises, self.cfg.gravity_mag,
-            integration=self.integration, stamp_time=stamp,
-        )
+        self.state = self._stage_prop(self.state, imu_t=tt, imu_w=ww, imu_a=aa, stamp_time=stamp)
         self._time_host = float(t)
         self._last_prop_dt = dt_now
         # mirror ring arithmetic
@@ -1038,18 +1212,18 @@ class VioManager:
         self.slam_fail.pop(fid, None)
         self.slam_consumed_t.pop(fid, None)
         # (the slot as a Python int: uploading it would make the host wait)
-        self.state = marginalize_slam(self.state, self.layout, slot)
+        self.state = self._stage_marg_slam(self.state, slot=slot)
 
     def _marginalize(self, t: float):
         if len(self.slot_times) > self.cfg.max_clones:
             slot = min(self.slot_times, key=self.slot_times.get)
             marg_t = self.slot_times.pop(slot)
-            slot_t = self._on(slot, torch.int64)
             # re-anchor landmarks whose anchor clone is about to die
-            # (UpdaterSLAM::change_anchors)
+            # (UpdaterSLAM::change_anchors); the slot as a Python int:
+            # uploading it would make the host wait
             if self.cfg.max_slam > 0 and self.cfg.feat_rep_slam != 0:
-                self.state = anchor_change(self.state, self.layout, slot_t, self.state.clone_head)
-            self.state = marginalize_clone(self.state, self.layout, slot_t)
+                self.state = anchor_change(self.state, self.layout, slot, self.state.clone_head)
+            self.state = self._stage_marg(self.state, slot=slot)
             # drop observations at (and before) the marginalized time:
             # their clone no longer exists
             self.db.cleanup_older_than(marg_t + 1e-9)

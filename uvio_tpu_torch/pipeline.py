@@ -36,8 +36,11 @@ every traced index must be a valid slot. The bundle's `marg_slot` and
 anchor change read it; the explicit ZUPT clamps `clone_head = -1` to 0
 (`zupt.py:231`).
 
-`make_batched_step` and `HostPipeline` (JAX mesh and `device_put`
-plumbing) are not ported.
+`make_batched_step` is `filter_step` under `torch.func.vmap` over a
+leading sequence-batch axis (`uvio_tpu`'s `jax.vmap`); `uvio_tpu`'s
+optional sharding of that axis over a device mesh ("dp") is not ported.
+`HostPipeline` stages chunk k+1 on the device from a thread while the
+caller runs chunk k.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ from .filter.ekf import marginalize_clone
 from .filter.propagator import INTEGRATIONS, NoiseManager, propagate_and_clone, propagate_mean_cov
 from .frontend.fused_vio import check_full_precision
 from .types.layout import StateLayout
-from .types.state import FilterState, oldest_clone_slot, where_state
+from .types.state import FIELDS, FilterState, oldest_clone_slot, where_state
 from .update.msckf import msckf_update
 from .update.representations import anchor_change
 from .update.slam import slam_delayed_init, slam_update
@@ -89,6 +92,106 @@ def make_step(cfg: StepConfig):
     obs_mask)`."""
     check_full_precision()
     return lambda *args: filter_step(*args, cfg=cfg)
+
+
+def make_batched_step(cfg: StepConfig):
+    """`filter_step` over a leading sequence-batch axis (multi-sequence
+    Monte-Carlo / dataset evaluation): `step(state, imu_t, imu_w, imu_a,
+    obs_uv, obs_mask)` with a leading axis B on every state field and
+    input, returning the batched state and infos.
+
+    `torch.func.vmap` rather than a written-out batch dimension: the step
+    is the single-sequence code, so the batched step cannot drift from
+    it. Its in-place block writes stay batched under vmap because every
+    buffer they write into is allocated from a batched tensor
+    (`new_zeros`), and the step makes no data-dependent host decision.
+    """
+    check_full_precision()
+
+    def one(fields, *args):
+        st, info = filter_step(FilterState(**dict(zip(FIELDS, fields))), *args, cfg=cfg)
+        return tuple(getattr(st, n) for n in FIELDS), info
+
+    batched = torch.func.vmap(one)
+
+    def step(state, *args):
+        fields, info = batched(tuple(getattr(state, n) for n in FIELDS), *args)
+        return FilterState(**dict(zip(FIELDS, fields))), info
+
+    return step
+
+
+class HostPipeline:
+    """Double-buffered host->device chunk staging.
+
+    The reference overlaps sensor ingestion with estimation with a detached
+    camera-processing thread (`UVIOROS1Visualizer.cpp:72-114`). Here a
+    background thread stages chunk k+1's arrays on the device while the
+    caller runs chunk k, at most `depth` chunks ahead.
+
+    On a CUDA device each leaf goes through pinned host memory and a
+    `non_blocking` copy on a side stream; the consumer's stream waits on
+    the copy's event before the chunk is handed out, and each staged
+    tensor is recorded on the consumer's stream so its memory outlives
+    the copy. On the CPU the leaves are plain copies. A chunk is any
+    nesting of dicts, lists, tuples and named tuples whose leaves are
+    numpy arrays, tensors or numbers; `device=None` is `default_device()`.
+
+    Usage:
+        pipe = HostPipeline(chunk_source)   # iterator of chunks
+        for staged in pipe:                 # staged already on device
+            state, out = run_chunk(state, staged)
+    """
+
+    def __init__(self, chunks, device=None, depth: int = 2):
+        import queue
+        import threading
+
+        self._q = queue.Queue(maxsize=depth)
+        self._device = resolve_device(device)
+        self._sentinel = object()
+        cuda = self._device.type == "cuda"
+        self._stream = torch.cuda.Stream(self._device) if cuda else None
+
+        def worker():
+            try:
+                for c in chunks:
+                    self._q.put(self._stage(c))
+            finally:
+                self._q.put(self._sentinel)
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def _stage(self, chunk):
+        """(staged chunk, copy event or None)."""
+        from torch.utils._pytree import tree_map
+
+        def host(x):
+            return x.detach().cpu() if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
+
+        if self._stream is None:
+            return tree_map(lambda x: host(x).to(self._device, copy=True), chunk), None
+        with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
+            staged = tree_map(lambda x: host(x).pin_memory().to(self._device, non_blocking=True), chunk)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return staged, event
+
+    def __iter__(self):
+        from torch.utils._pytree import tree_leaves
+
+        while True:
+            item = self._q.get()
+            if item is self._sentinel:
+                return
+            staged, event = item
+            if event is not None:
+                consumer = torch.cuda.current_stream(self._device)
+                consumer.wait_event(event)
+                for x in tree_leaves(staged):
+                    x.record_stream(consumer)
+            yield staged
 
 
 class FrameBundle(NamedTuple):

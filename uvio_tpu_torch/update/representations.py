@@ -176,10 +176,16 @@ def d_value_d_anchor_point(rep: int, p_FinA):
 
 def _anchor_cam_pose(state: FilterState, slot, cam, fej: bool):
     """(R_GtoC, p_CinG, R_GtoI, p_IinG) of clone `slot` seen by camera
-    `cam`; `slot` and `cam` are index tensors that broadcast together."""
-    slot, cam = torch.broadcast_tensors(slot, cam)
-    q = take(state.clones_q_fej if fej else state.clones_q, slot)
-    p_I = take(state.clones_p_fej if fej else state.clones_p, slot)
+    `cam`; `slot` and `cam` are index tensors that broadcast together, or
+    `slot` is a Python int (read with no index upload)."""
+    q_all = state.clones_q_fej if fej else state.clones_q
+    p_all = state.clones_p_fej if fej else state.clones_p
+    if isinstance(slot, int):
+        q = q_all[slot].expand(cam.shape + (4,))
+        p_I = p_all[slot].expand(cam.shape + (3,))
+    else:
+        slot, cam = torch.broadcast_tensors(slot, cam)
+        q, p_I = take(q_all, slot), take(p_all, slot)
     R_GtoI = quat_to_rot(q)
     R_ItoC = quat_to_rot(take(state.calib_cam_q, cam))
     p_IinC = take(state.calib_cam_p, cam)
@@ -254,7 +260,8 @@ def point_to_rep(state: FilterState, layout: StateLayout, p_FinG, anchor_slot, a
 
 def anchor_change(state: FilterState, layout: StateLayout, marg_slot, new_slot):
     """Re-anchor every valid landmark anchored at clone `marg_slot` to
-    clone `new_slot` (0-d index tensors): the value exactly, the
+    clone `new_slot` (0-d index tensors; `marg_slot` may be a Python int,
+    which indexes with no upload): the value exactly, the
     covariance to first order (`UpdaterSLAM::change_anchors`).
 
     `uvio_tpu` scans the slots and, per moved landmark s, replaces its

@@ -6,6 +6,8 @@ as a written-out leading dimension F:
 
   * `triangulate_linear`: the linear A p = b accumulation with
     condition-number and depth gating (`single_triangulation`);
+  * `triangulate_1d`: the depth-only solve along the anchor bearing
+    (`single_triangulation_1d`);
   * `refine_gauss_newton`: inverse-depth GN refinement with a fixed
     iteration count (`single_gaussnewton`), with its Jacobian in closed
     form.
@@ -141,16 +143,64 @@ def refine_gauss_newton(p0, uvn, mask, R_GtoC, p_CinG, max_baseline=40.0):
     return torch.where(ok[:, None], p_new, p0), ok
 
 
-def triangulate_batch(uvn, mask, R_GtoC, p_CinG, max_baseline=40.0):
-    """Triangulate + refine a feature batch.
+def triangulate_1d(uvn, mask, R_GtoC, p_CinG, min_depth=0.1, max_depth=60.0):
+    """Depth-only (1D) triangulation along the anchor bearing, batched
+    over features (`single_triangulation_1d`, `FeatureInitializer.cpp:
+    114-195`): the anchor is the last valid observation; every other
+    observation's bearing, rotated into the anchor frame, contributes a
+    scalar least-squares row ||skew(b_i) (d b_A - p_CiinA)||^2, solved in
+    closed form for the depth d.
+
+    uvn (F,M,2), mask (F,M), R_GtoC (F,M,3,3), p_CinG (F,M,3).
+    Returns (p_FinG (F,3), ok (F,)).
+    """
+    M = mask.shape[-1]
+    a_idx = M - 1 - _first_true(mask.flip(-1))
+    R_GtoA = _take(R_GtoC, a_idx)  # (F,3,3)
+    p_AinG = _take(p_CinG, a_idx)  # (F,3)
+    b_C = torch.cat([uvn, torch.ones_like(uvn[..., :1])], dim=-1)
+    b_a = _take(b_C, a_idx)
+    b_A_anchor = b_a / torch.linalg.vector_norm(b_a, dim=-1, keepdim=True)
+
+    # every bearing into the anchor frame: b_i^A = R_AtoCi^T b_i
+    R_AtoC = R_GtoC @ R_GtoA[:, None].transpose(-1, -2)  # (F,M,3,3)
+    b_inA = (R_AtoC.transpose(-1, -2) @ b_C[..., None])[..., 0]
+    b_inA = b_inA / torch.clamp(torch.linalg.vector_norm(b_inA, dim=-1, keepdim=True), min=1e-12)
+    p_CinA = (p_CinG - p_AinG[:, None]) @ R_GtoA.transpose(-1, -2)  # (F,M,3)
+
+    Bperp = skew(b_inA)  # (F,M,3,3)
+    Ba = (Bperp @ b_A_anchor[:, None, :, None])[..., 0]  # (F,M,3)
+    use = mask & (torch.arange(M, device=mask.device) != a_idx[:, None])
+    w = use.to(uvn.dtype)
+    A = (w * (Ba * Ba).sum(-1)).sum(-1)
+    b = (w * (Ba * (Bperp @ p_CinA[..., None])[..., 0]).sum(-1)).sum(-1)
+    depth = b / torch.where(A.abs() < 1e-12, torch.ones_like(A), A)
+    p_inA = depth[:, None] * b_A_anchor
+    ok = (
+        (p_inA[:, 2] > min_depth)
+        & (p_inA[:, 2] < max_depth)
+        & (use.sum(-1) >= 1)
+        & torch.isfinite(p_inA).all(-1)
+    )
+    p_G = (R_GtoA.transpose(-1, -2) @ p_inA[..., None])[..., 0] + p_AinG
+    return torch.where(ok[:, None], p_G, torch.zeros_like(p_G)), ok
+
+
+def triangulate_batch(uvn, mask, R_GtoC, p_CinG, refine=True, max_baseline=40.0, use_1d=False):
+    """Triangulate (+ refine) a feature batch.
 
     uvn (F,M,2), mask (F,M), R_GtoC (F,M,3,3) or (M,3,3) shared, p_CinG
-    likewise. Returns (p_FinG (F,3), ok (F,)).
+    likewise. `use_1d` selects the depth-only anchor-ray solve (the
+    reference's `triangulate_1d` option); `refine` the Gauss-Newton
+    refinement. Returns (p_FinG (F,3), ok (F,)).
     """
     F = uvn.shape[0]
     if R_GtoC.ndim == 3:
         R_GtoC = R_GtoC.expand(F, *R_GtoC.shape)
         p_CinG = p_CinG.expand(F, *p_CinG.shape)
-    p_lin, ok_lin = triangulate_linear(uvn, mask, R_GtoC, p_CinG)
+    tri = triangulate_1d if use_1d else triangulate_linear
+    p_lin, ok_lin = tri(uvn, mask, R_GtoC, p_CinG)
+    if not refine:
+        return p_lin, ok_lin
     p_ref, ok_ref = refine_gauss_newton(p_lin, uvn, mask, R_GtoC, p_CinG, max_baseline=max_baseline)
     return torch.where(ok_lin[:, None], p_ref, p_lin), ok_lin & ok_ref
