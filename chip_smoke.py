@@ -149,6 +149,27 @@ Phases, each printing one JSON line:
               trace(cov) within 1e-6 relative on every frame; printed: the
               mean of each stage, host syncs on the last 5 frames. None of
               it runs a hand kernel.
+ 14. batch  — B independent sequences through one batched full step
+              (`pipeline.make_batched_full_step`, `torch.func.vmap` of the
+              full step), on the committed fixture `fixtures/batched_seeds.npz`:
+              `bench.py`'s scenario under seeds 7-10, each after its own
+              warm-up, so the four plans differ in UWB rows, SLAM init and
+              marginalization. (a) float64: every info of every sequence and
+              frame equal to `uvio_tpu`'s `jax.vmap(full_filter_step)`
+              replay, position within 1e-6 m and trace(cov) within 1e-6
+              relative. (b) float32 (float64 time): cov_ok on every frame of
+              every sequence, each final position within 2 cm of JAX
+              float32's. (c) float32, the four sequences tiled to B = 1, 8,
+              32: a warm pass over 5 frames, then 20 timed frames (and the
+              single step on sequence 0's frames by the same clock); per B
+              ms per batched step (host clock to a synchronize), sequence-
+              frames/s, kernel launches of one step (profiler), host syncs
+              in one step (gated at 0), peak device memory; and the
+              operations vmap runs as a per-sample loop (its fallback
+              warnings). (d) `examples/profile_step_torch.py` and
+              `examples/scaling_torch.py` as two subprocesses side by side,
+              at reduced repetitions: exit code 0, their JSON lines echoed.
+              It runs no hand kernel.
 Then the kernel table (with each kernel's bound: the larger of its bytes
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted from
 this run's inputs; `launches` summed over the slice, the tracker runs and
@@ -158,7 +179,7 @@ result line. Needs no network; any failed check raises.
     python3 chip_smoke.py --phases init,streams
 
 runs only the named phases (comma list of kernels, slice, full_step,
-manager, tracker, init, streams, backend; default all): the card and build phases
+manager, tracker, init, streams, backend, batch; default all): the card and build phases
 always run, and the kernel table is printed only with `kernels`.
 """
 
@@ -1917,7 +1938,170 @@ def backend_phase(card):
     backend_staged_fixture(card)
 
 
-PHASES = ("kernels", "slice", "full_step", "manager", "tracker", "init", "streams", "backend")
+def batch_inputs(dev, dtype, B=None):
+    """The batched fixture, the batched step, and its inputs tiled to B
+    (all four sequences by default) on `dev` in `dtype`: (fx, step,
+    state0, [(bundle, plan)] a frame)."""
+    from uvio_tpu_torch.fixtures import load_batched_fixture, stage_batched_fixture
+    from uvio_tpu_torch.pipeline import FullStepConfig, make_batched_full_step
+
+    fx = load_batched_fixture()
+    state0, staged = stage_batched_fixture(fx, B, device=dev, dtype=dtype)
+    return fx, make_batched_full_step(FullStepConfig.from_dict(fx.config)), state0, staged
+
+
+def batch_fixture(dev, card):
+    """(a), (b): the fixture's four sequences as one batch, float64 against
+    JAX's vmapped float64 replay, float32 against its float32 gates."""
+    import numpy as np
+    import torch
+
+    fx, step, st, staged = batch_inputs(dev, torch.float64)
+    ref, bad, p_err, tr_err = fx.replays["f64"], [], 0.0, 0.0
+    t0 = time.perf_counter()
+    for k, (fb, plan) in enumerate(staged):
+        st, info = step(st, fb, plan)
+        got = {key: info[key] for key in ("cov_ok", "zupt_accepted", "slam_kept", "slam_failed",
+                                          "slam_inited", "uwb_accepted")}
+        got.update({"msckf_" + key: info["msckf"][key] for key in ("tri_ok", "kept", "num_used", "cov_ok")})
+        bad += [{"frame": k, "info": key, "got": v.cpu().tolist(), "jax": ref[key][k].tolist()}
+                for key, v in got.items() if not np.array_equal(v.cpu().numpy(), ref[key][k])]
+        p_err = max(p_err, float(np.abs(st.p.cpu().numpy() - ref["p"][k]).max()))
+        tr = torch.diagonal(st.cov, dim1=-2, dim2=-1).sum(-1).cpu().numpy()
+        tr_err = max(tr_err, float(np.abs(tr / ref["cov_trace"][k] - 1.0).max()))
+    B, n = len(fx.seeds), len(staged)
+    rec = {"phase": "batch", "part": "fixture_float64", "seeds": fx.seeds.tolist(), "warm": fx.warm.tolist(),
+           "frames": n, "plans_differ": {name: sum(bool((getattr(p, name) != getattr(p, name)[:1]).any().item())
+                                                   for _, p in staged) for name in ("uwb_rows", "slam_init", "marg")},
+           "infos_equal_all": not bad, "max_p_diff_m": p_err, "max_trace_rel_diff": tr_err,
+           "ms_per_step_with_readback": (time.perf_counter() - t0) / n * 1e3, "card": card}
+    log(rec)
+    if bad or not (p_err <= 1e-6 and tr_err <= 1e-6):
+        for b in bad[:20]:
+            log(b)
+        raise RuntimeError("the batched float64 step disagrees with JAX's vmapped replay")
+
+    fx, step, st, staged = batch_inputs(dev, torch.float32)
+    cov_ok = []
+    for fb, plan in staged:
+        st, info = step(st, fb, plan)
+        cov_ok.append(info["cov_ok"])
+    cov_ok = torch.stack(cov_ok).cpu().numpy()
+    final = np.linalg.norm(st.p.cpu().numpy().astype(np.float64) - fx.replays["f32"]["p"][-1], axis=1)
+    rec = {"phase": "batch", "part": "fixture_float32", "frames": n, "sequences": B,
+           "cov_ok_all": bool(cov_ok.all()), "final_p_diff_vs_jax_m": final.tolist(), "card": card}
+    log(rec)
+    if not (cov_ok.all() and (final <= 0.02).all()):
+        raise RuntimeError("the batched float32 step failed its gates")
+
+
+def batch_sweep(dev, card, batches=(1, 8, 32), warm=5, timed=20):
+    """(c): ms, sequence-frames/s, launches, host syncs and peak memory of
+    the batched float32 step at each B; the operations vmap loops over."""
+    import warnings
+
+    import torch
+
+    from uvio_tpu_torch.fixtures import load_batched_fixture
+    from uvio_tpu_torch.pipeline import FullStepConfig, bundle_from_numpy, make_full_step, plan_frame
+    from uvio_tpu_torch.types.state import state_from_numpy
+
+    # the single step on sequence 0's frames, the same clock, for B = 1
+    fx = load_batched_fixture()
+    single = make_full_step(FullStepConfig.from_dict(fx.config))
+    s0 = state_from_numpy({k: v[0] for k, v in fx.state0.items()}, dev, torch.float32)
+    frames, t = [], float(fx.state0["time"][0])
+    for frame in fx.bundles[:timed]:
+        frames.append((bundle_from_numpy(frame[0], dev, torch.float32), plan_frame(frame[0], t)))
+        t = float(frame[0]["stamp_time"])
+
+    def run_single(n):
+        st = s0
+        for fb, plan in frames[:n]:
+            st, _ = single(st, fb, plan)
+
+    run_single(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_single(timed)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) / timed * 1e3
+    log({"phase": "batch", "part": "sweep", "B": "single step", "ms_per_step": single_ms,
+         "launches_per_step": kernel_launches(lambda: single(s0, *frames[1]))[0], "card": card})
+
+    fallbacks, rows = set(), []
+    for B in batches:
+        fx, step, state0, staged = batch_inputs(dev, torch.float32, B)
+
+        def run(frames):
+            st = state0
+            for fb, plan in frames:
+                st, _ = step(st, fb, plan)
+            return st
+
+        torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run(staged[:warm])
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+        fallbacks |= {str(w.message).split(" for ")[-1].split(".")[0] for w in caught
+                      if "batching rule" in str(w.message)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run(staged[:timed])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        fb, plan = staged[1]
+        syncs, sources = syncs_of(lambda: step(state0, fb, plan))
+        launches, graphs, kernels = kernel_launches(lambda: step(state0, fb, plan))
+        rows.append({"B": B, "ms_per_step": wall / timed * 1e3, "seq_frames_per_s": B * timed / wall,
+                     "launches_per_step": launches, "device_kernels_per_step": kernels,
+                     "host_syncs_per_step": syncs, "sync_sources": sources, "peak_memory_bytes": peak})
+        log({"phase": "batch", "part": "sweep", **rows[-1], "card": card})
+    log({"phase": "batch", "part": "vmap_fallbacks", "ops": sorted(fallbacks), "card": card})
+    if any(r["host_syncs_per_step"] for r in rows):
+        raise RuntimeError("a batched step waits for the host")
+    return rows
+
+
+def batch_twins(card):
+    """(d): the two example twins on the card at reduced repetitions, run
+    side by side (their times here are not measurements: each shares the
+    card and the host with the other)."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    runs = {"profile_step_torch": ["--iters", "3", "--chunk", "5", "--chunk-iters", "1"],
+            "scaling_torch": ["--batches", "1,4", "--frames", "3", "--reps", "1", "--ba-reps", "1"]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, os.path.join(ROOT, "examples", name + ".py"), *args],
+                                    cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, args in runs.items()}
+    try:
+        outs = {name: p.communicate(timeout=400) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, (out, err) in outs.items():
+        rc, lines = procs[name].returncode, out.strip().splitlines()
+        log({"phase": "batch", "part": "twin", "script": name, "args": runs[name], "rc": rc,
+             "seconds_both": time.perf_counter() - t0, "card": card})
+        if rc != 0 or not lines:
+            print(err[-4000:], file=sys.stderr)
+            raise RuntimeError(f"examples/{name}.py failed with exit code {rc}")
+        print(lines[-1], flush=True)
+
+
+def batch_phase(dev, card):
+    """The batched full step on the card (module docstring, phase 14)."""
+    batch_fixture(dev, card)
+    batch_sweep(dev, card)
+    batch_twins(card)
+
+
+PHASES = ("kernels", "slice", "full_step", "manager", "tracker", "init", "streams", "backend", "batch")
 
 
 def main(argv=None):
@@ -1998,6 +2182,9 @@ def main(argv=None):
     if "backend" in phases:
         backend_phase(card)
         done("backend")
+    if "batch" in phases:
+        batch_phase(dev, card)
+        done("batch")
 
     log({"phase": "total", "seconds": time.perf_counter() - t_start, "phase_seconds": seconds})
     if kernels is not None:

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Profile the port's steps on one CUDA card with `torch.profiler`.
 
-    python scripts/profile_steps.py [--steps slice,full_step] [--root DIR] [--out FILE]
+    python scripts/profile_steps.py [--steps slice,full_step,batch1,batch32] [--root DIR] [--out FILE]
 
 For each step it runs one warm-up pass, then traces frames 20-24 of a
 second pass: kernel launches per frame, host time inside the launch
 calls, device busy time (the union of kernel intervals) and its share of
-the traced wall time, and device time by op. `slice` is the fused
-image -> pose step on the rendered 752x480 frames of `chip_smoke.py`;
-`full_step` is `pipeline.full_filter_step` replaying the committed
-fixture in float32.
+the traced wall time, device time by op, and the kernels each operator
+launched. `slice` is the fused image -> pose step on the rendered 752x480
+frames of `chip_smoke.py`; `full_step` is `pipeline.full_filter_step`
+replaying the committed fixture in float32; `batch<B>` is
+`pipeline.make_batched_full_step` on the batched fixture's four sequences
+tiled to B, float32.
 
 `--root` is the checkout whose `uvio_tpu_torch` is profiled (default:
 the one holding this script); the inputs are always made by this
@@ -60,6 +62,10 @@ def trace(frames, n_frames):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     ka = prof.key_averages()
+    by_op = {}
+    for e in prof.events():
+        if e.name.startswith("aten::") and e.kernels:
+            by_op[e.name] = by_op.get(e.name, 0) + len(e.kernels)
     launches = sum(e.count for e in ka if e.key in LAUNCH_KEYS)
     launch_host = sum(e.cpu_time_total for e in ka if e.key in LAUNCH_KEYS) / 1e3
     busy = _busy_ms(prof.events(), torch.autograd.DeviceType.CUDA)
@@ -69,7 +75,8 @@ def trace(frames, n_frames):
             "launch_host_ms_per_frame": launch_host / n_frames,
             "wall_ms_per_frame_traced": wall / n_frames, "device_busy_ms_per_frame": busy / n_frames,
             "device_idle_share": 1.0 - busy / wall,
-            "top_device_ops_ms": [(k, round(ms, 4), c) for k, ms, c in ops[:20]]}
+            "top_device_ops_ms": [(k, round(ms, 4), c) for k, ms, c in ops[:20]],
+            "kernels_per_frame_by_op": sorted(((k, n / n_frames) for k, n in by_op.items()), key=lambda x: -x[1])[:10]}
 
 
 def profile_slice(smoke, dev):
@@ -106,6 +113,25 @@ def profile_full_step(smoke, dev):
     return trace(it, TRACED)
 
 
+def profile_batch(smoke, dev, B):
+    import torch
+
+    _, step, st0, staged = smoke.batch_inputs(dev, torch.float32, B)
+
+    def frames():
+        st = st0
+        for fb, plan in staged:
+            st, _ = step(st, fb, plan)
+            yield st
+
+    for _ in frames():  # warm-up pass
+        pass
+    it = frames()
+    for _ in range(WARM):
+        next(it)
+    return trace(it, TRACED)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", default="slice,full_step")
@@ -130,12 +156,17 @@ def main():
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     out = []
     for name in args.steps.split(","):
-        fn = {"slice": profile_slice, "full_step": profile_full_step}[name]
-        rec = {"step": name, "root": root, "card": card, **fn(smoke, dev)}
+        if name.startswith("batch"):
+            rec = {"step": name, "root": root, "card": card, **profile_batch(smoke, dev, int(name[5:]))}
+        else:
+            fn = {"slice": profile_slice, "full_step": profile_full_step}[name]
+            rec = {"step": name, "root": root, "card": card, **fn(smoke, dev)}
         out.append(rec)
-        print(json.dumps({k: v for k, v in rec.items() if k != "top_device_ops_ms"}), flush=True)
+        print(json.dumps({k: v for k, v in rec.items() if k not in ("top_device_ops_ms", "kernels_per_frame_by_op")}),
+              flush=True)
         for row in rec["top_device_ops_ms"][:10]:
             print("   ", row, flush=True)
+        print("    kernels a frame by operator:", rec["kernels_per_frame_by_op"][:6], flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -11,6 +11,12 @@ Tolerances: the sharded solves differ from the one-device solve only in
 the order of their sums, so costs and final parameters agree to 1e-10
 (relative for the costs); every rank returns the same full result, bit
 for bit.
+
+The "dp" split of a sequence batch (`pipeline.make_batched_step` and
+`make_batched_full_step` given the default process group): 2 gloo processes each
+step half of the committed four-sequence fixture's batch and all-gather
+it; every rank's result equals the one-process batch to 1e-12 with every
+info equal, and a batch of 3 on 2 ranks raises.
 """
 
 import os
@@ -110,3 +116,78 @@ def test_init_from_env_noop_without_vars(monkeypatch):
     assert D.init_from_env() is False
     monkeypatch.setenv("UVIO_COORDINATOR", "127.0.0.1:1")  # incomplete: still a no-op
     assert D.init_from_env() is False
+
+
+def _dp_cases(group):
+    """The batched steps on the four-sequence fixture, float64: two frames
+    of the full step and one of the MSCKF-only step, as numpy (state
+    fields and infos keyed by name)."""
+    from torch.utils._pytree import tree_flatten_with_path, keystr
+
+    from uvio_tpu_torch.fixtures import load_batched_fixture
+    from uvio_tpu_torch.pipeline import (
+        FullStepConfig, StepConfig, make_batched_full_step, make_batched_step, plan_batch, stack_bundles,
+    )
+    from uvio_tpu_torch.types.state import FIELDS, state_from_numpy
+
+    torch.backends.cudnn.allow_tf32 = False
+    fx = load_batched_fixture()
+    cfg = FullStepConfig.from_dict(fx.config)
+    out = {}
+
+    def record(prefix, st, infos):
+        out.update({f"{prefix}_{n}": getattr(st, n).numpy() for n in FIELDS})
+        for path, x in tree_flatten_with_path(infos)[0]:
+            out[f"{prefix}_info{keystr(path)}"] = x.numpy()
+
+    state0 = state_from_numpy(fx.state0, device="cpu", dtype=torch.float64)
+    full = make_batched_full_step(cfg, group)
+    st, times = state0, [float(t) for t in fx.state0["time"]]
+    for k in range(2):
+        plan = plan_batch(fx.bundles[k], times)
+        st, infos = full(st, *stack_bundles(fx.bundles[k], plan, "cpu"))
+        record(f"full{k}", st, infos)
+        times = [float(b["stamp_time"]) for b in fx.bundles[k]]
+    msckf = make_batched_step(StepConfig(layout=cfg.layout, noises=cfg.noises, sigma_pix=cfg.sigma_pix), group)
+    inputs = [torch.as_tensor(np.stack([b[n] for b in fx.bundles[0]]))
+              for n in ("imu_t", "imu_w", "imu_a", "msckf_uv", "msckf_mask")]
+    record("msckf", *msckf(state0, *inputs))
+    if group is not None:  # 3 sequences do not split over 2 ranks
+        three = type(state0)(**{n: getattr(state0, n)[:3] for n in FIELDS})
+        try:
+            full(three, *stack_bundles(fx.bundles[0][:3], plan_batch(fx.bundles[0][:3], times[:3]), "cpu"))
+        except ValueError as e:
+            out["uneven_error"] = np.array(str(e))
+    return out
+
+
+def _dp_worker(rank, world, store, out_dir):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        np.savez(os.path.join(out_dir, f"dp{rank}.npz"), **_dp_cases(dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dp_split_matches_one_process(tmp_path):
+    """`make_batched_full_step` and `make_batched_step` over 2 gloo
+    processes: each rank's gathered batch equals the one-process batch
+    to 1e-12 (states and chi2 statistics) with every decision equal; B=3
+    over 2 ranks raises."""
+    torch.set_num_threads(1)
+    ref = _dp_cases(None)
+    mp.spawn(_dp_worker, args=(2, str(tmp_path / "store"), str(tmp_path)), nprocs=2, join=True)
+    for r in range(2):
+        got = dict(np.load(tmp_path / f"dp{r}.npz"))
+        assert "does not split evenly over 2 ranks" in str(got.pop("uneven_error"))
+        assert sorted(got) == sorted(ref)
+        for k, v in ref.items():
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            if v.dtype.kind == "f":  # states, and the gates' chi2 statistics among the infos
+                np.testing.assert_allclose(got[k], v, rtol=1e-12, atol=1e-12, err_msg=f"rank {r} {k}")
+            else:
+                np.testing.assert_array_equal(got[k], v, err_msg=f"rank {r} {k}")
+    assert ref["full1_p"].shape == (4, 3) and np.ptp(ref["full1_p"][:, 0]) > 1e-3  # four different sequences

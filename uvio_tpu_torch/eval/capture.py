@@ -10,7 +10,9 @@ fill and re-anchor, UWB ranges accept and reject.
 `bench_scenario`, `drive` and `record_live` are the scenario, the feeding
 loop and the recording hook on their own, for callers that keep the
 manager (the smoke run holds the live loop's decisions against the
-committed fixture and times it with them).
+committed fixture and times it with them). `capture_batch` captures the
+scenario under several seeds, the inputs of a batch of independent
+sequences (`pipeline.make_batched_full_step`).
 """
 
 from __future__ import annotations
@@ -144,3 +146,22 @@ def capture_sim_bundles(n_warm: int = 20, n_bench: int = 100, seed: int = 7, max
     sim, mgr = bench_scenario(n_warm + n_bench, seed, max_slam, dtype, device)
     rec = record_live(sim, mgr, n_warm + n_bench, snapshot_at=n_warm)
     return mgr._full_cfg, rec["snapshot"], rec["bundles"][n_warm : n_warm + n_bench]
+
+
+def capture_batch(seeds, n_warm=20, n_bench: int = 100, max_slam: int = 25,
+                  dtype: str = "float32", device=None):
+    """`capture_sim_bundles` under each seed of `seeds`: returns (full_cfg,
+    state0, bundles) with `state0` the B states after `n_warm` frames
+    (an int, or one per seed) stacked field by field (a leading axis B),
+    and `bundles` the next `n_bench` frames, each a list of the B
+    sequences' numpy bundles (what `pipeline.plan_batch` and
+    `pipeline.stack_bundles` take). The shapes are static, so the runs
+    share one `FullStepConfig`; raises if two seeds give different ones."""
+    warm = [n_warm] * len(seeds) if isinstance(n_warm, int) else list(n_warm)
+    runs = [capture_sim_bundles(w, n_bench, s, max_slam, dtype, device) for s, w in zip(seeds, warm, strict=True)]
+    cfg = runs[0][0]
+    for s, (c, _, _) in zip(seeds, runs):
+        if c != cfg:
+            raise ValueError(f"seed {s} gives another FullStepConfig than seed {seeds[0]}")
+    state0 = {k: np.stack([r[1][k] for r in runs]) for k in runs[0][1]}
+    return cfg, state0, [[r[2][t] for r in runs] for t in range(n_bench)]

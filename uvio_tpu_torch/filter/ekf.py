@@ -151,7 +151,7 @@ def augment_clone(state: FilterState, layout: StateLayout, w_hat: torch.Tensor) 
     cov = state.cov
     idx = _slot_index(L.clone_off + 6 * slot, 6, cov.device)
 
-    J = torch.zeros((6, L.dim), dtype=cov.dtype, device=cov.device)
+    J = cov.new_zeros((6, L.dim))
     eye3 = torch.eye(3, dtype=cov.dtype, device=cov.device)
     J[0:3, L.theta_off : L.theta_off + 3] = eye3
     J[3:6, L.p_off : L.p_off + 3] = eye3

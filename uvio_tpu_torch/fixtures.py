@@ -16,6 +16,12 @@ with the poses of a JAX manager that restored it and ran frames 21-30.
 `uvio_tpu`'s staged `UVioManager` (`fused_step=False`, float64): per frame
 after 20 warm-up frames, the `staged_record` of the manager.
 `scripts/make_staged_fixture.py` writes it.
+
+`fixtures/batched_seeds.npz` holds the same scenario under four seeds,
+each after its own warm-up, stacked into one batch of four independent
+sequences, and per frame and sequence the results of `uvio_tpu`'s
+`jax.vmap(full_filter_step)` replays of that batch in float64 and
+float32. `scripts/make_batched_fixture.py` writes it.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 FULL_STEP_FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "full_step_seed7.npz")
 MANAGER_CKPT_FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "manager_ckpt_seed7.npz")
 STAGED_FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "staged_seed7.npz")
+BATCHED_FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "batched_seeds.npz")
 # the staged fixture's scenario: frames of warm-up, then recorded frames
 STAGED_WARM, STAGED_FRAMES = 20, 60
 
@@ -66,6 +73,58 @@ def load_full_step_fixture(path: str = FULL_STEP_FIXTURE) -> FullStepFixture:
         snapshots=snaps,
         gt_p=arrays["gt_p"],
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedFixture:
+    config: dict  # dataclasses.asdict of the FullStepConfig
+    seeds: np.ndarray  # (B,)
+    warm: np.ndarray  # (B,) warm-up frames before state0
+    state0: dict  # state field -> (B, ...) array
+    bundles: list  # per frame: the B sequences' bundles, bundle field -> array
+    replays: dict  # "f64"/"f32" -> key -> (frames, B, ...) array
+
+
+def load_batched_fixture(path: str = BATCHED_FIXTURE) -> BatchedFixture:
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+
+    def group(prefix):
+        n = len(prefix)
+        return {k[n:]: v for k, v in arrays.items() if k.startswith(prefix)}
+
+    fb = group("fb_")
+    n_frames, B = fb["stamp_time"].shape
+    return BatchedFixture(
+        config=json.loads(str(arrays["config_json"])),
+        seeds=arrays["seeds"],
+        warm=arrays["warm"],
+        state0=group("state0_"),
+        bundles=[[{name: v[k, b] for name, v in fb.items()} for b in range(B)] for k in range(n_frames)],
+        replays={"f64": group("f64_"), "f32": group("f32_")},
+    )
+
+
+def stage_batched_fixture(fx: BatchedFixture, B=None, frames=None, device=None, dtype=None):
+    """(state0, [(bundle, plan)] a frame): the fixture's sequences tiled
+    to B (all of them by default) as the inputs of
+    `pipeline.make_batched_full_step`, the first `frames` frames (all by
+    default) staged on `device` (None: the card) in `dtype` (float32 by
+    default)."""
+    import torch
+
+    from .pipeline import plan_batch, stack_bundles
+    from .types.state import state_from_numpy
+
+    dtype = dtype or torch.float32
+    idx = [b % len(fx.seeds) for b in range(B or len(fx.seeds))]
+    state0 = {k: v[idx] for k, v in fx.state0.items()}
+    times, staged = [float(t) for t in state0["time"]], []
+    for frame in fx.bundles[:frames]:
+        bs = [frame[i] for i in idx]
+        staged.append(stack_bundles(bs, plan_batch(bs, times), device, dtype))
+        times = [float(b["stamp_time"]) for b in bs]
+    return state_from_numpy(state0, device, dtype), staged
 
 
 def load_manager_ckpt_reference(path: str = MANAGER_CKPT_FIXTURE) -> dict:

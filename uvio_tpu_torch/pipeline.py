@@ -36,9 +36,19 @@ every traced index must be a valid slot. The bundle's `marg_slot` and
 anchor change read it; the explicit ZUPT clamps `clone_head = -1` to 0
 (`zupt.py:231`).
 
-`make_batched_step` is `filter_step` under `torch.func.vmap` over a
-leading sequence-batch axis (`uvio_tpu`'s `jax.vmap`); `uvio_tpu`'s
-optional sharding of that axis over a device mesh ("dp") is not ported.
+Batches of independent sequences (Monte-Carlo runs, dataset
+evaluation): `make_batched_step` is `filter_step` and
+`make_batched_full_step` is `full_filter_step` under `torch.func.vmap`
+over a leading sequence axis B, as `uvio_tpu` runs them under `jax.vmap`.
+Under `jax.vmap` every `lax.cond` becomes a select over both branches. B
+sequences have B plans, so the batched full step runs each branch that
+any sequence's plan runs (`BatchPlan.union`) and then, per sequence,
+selects between the branch's result and its input by that sequence's own
+decision (`BatchPlan`'s bit tensors, which `stack_bundles` uploads with
+the bundles). Given a `torch.distributed` process group, both split the
+batch into equal contiguous slices in rank order, step each rank's slice
+and all-gather the results: `uvio_tpu`'s sharding of the batch over mesh
+axis "dp".
 `HostPipeline` stages chunk k+1 on the device from a thread while the
 caller runs chunk k.
 """
@@ -46,7 +56,7 @@ caller runs chunk k.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -94,11 +104,43 @@ def make_step(cfg: StepConfig):
     return lambda *args: filter_step(*args, cfg=cfg)
 
 
-def make_batched_step(cfg: StepConfig):
+def _over_batch(fn, group, *args, **kwargs):
+    """`torch.func.vmap(fn)(*args, **kwargs)` over the leading axis of
+    every tensor in `args` (`kwargs` pass unbatched). With a process group
+    the batch is split into equal contiguous slices in rank order: this
+    rank steps its slice, and one `all_gather` of the packed results
+    returns the whole batch on every rank."""
+    if group is None:
+        return torch.func.vmap(fn)(*args, **kwargs)
+    import torch.distributed as dist
+    from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    B = tree_flatten(args)[0][0].shape[0]
+    if B % world:
+        raise ValueError(f"a batch of {B} sequences does not split evenly over {world} ranks")
+    n = B // world
+    out = torch.func.vmap(fn)(*tree_map(lambda x: x[rank * n : (rank + 1) * n], args), **kwargs)
+    leaves, spec = tree_flatten(out)
+    # float64 holds every float32, bool and index exactly
+    flat = torch.cat([x.reshape(-1).to(torch.float64) for x in leaves])
+    parts = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(parts, flat, group=group)
+    per_rank = [torch.split(p, [x.numel() for x in leaves]) for p in parts]
+    return tree_unflatten(
+        [torch.cat([r[i].reshape(x.shape) for r in per_rank]).to(x.dtype) for i, x in enumerate(leaves)],
+        spec,
+    )
+
+
+def make_batched_step(cfg: StepConfig, group=None):
     """`filter_step` over a leading sequence-batch axis (multi-sequence
     Monte-Carlo / dataset evaluation): `step(state, imu_t, imu_w, imu_a,
     obs_uv, obs_mask)` with a leading axis B on every state field and
-    input, returning the batched state and infos.
+    input, returning the batched state and infos. With a
+    `torch.distributed` process group (the "dp" axis, e.g.
+    `torch.distributed.group.WORLD`) each rank steps B / world sequences
+    and every rank returns the whole batch; B must divide evenly.
 
     `torch.func.vmap` rather than a written-out batch dimension: the step
     is the single-sequence code, so the batched step cannot drift from
@@ -112,10 +154,8 @@ def make_batched_step(cfg: StepConfig):
         st, info = filter_step(FilterState(**dict(zip(FIELDS, fields))), *args, cfg=cfg)
         return tuple(getattr(st, n) for n in FIELDS), info
 
-    batched = torch.func.vmap(one)
-
     def step(state, *args):
-        fields, info = batched(tuple(getattr(state, n) for n in FIELDS), *args)
+        fields, info = _over_batch(one, group, tuple(getattr(state, n) for n in FIELDS), *args)
         return FilterState(**dict(zip(FIELDS, fields))), info
 
     return step
@@ -237,24 +277,23 @@ _BOOL_FIELDS = ("msckf_mask", "slam_mask", "cand_mask", "uwb_mask", "zupt_try", 
 _INT_FIELDS = ("cand_slots", "cand_ids", "marg_slot")
 
 
-def bundle_from_numpy(fields, device=None, dtype=torch.float64) -> FrameBundle:
-    """A `FrameBundle` on `device` (None: `default_device()`, the card or
-    an error) from numpy arrays keyed by field name
-    (a mapping, or a bundle of numpy leaves such as `uvio_tpu`'s). Times
-    stay float64, masks bool, indices int64; the rest takes `dtype`.
+def _getter(fields):
+    return fields.__getitem__ if isinstance(fields, dict) else lambda n: getattr(fields, n)
 
-    The leaves cross to the device together: packed into one float64
-    buffer (which holds every mask and index exactly), and on a CUDA device
-    copied from pinned memory without waiting for the device, so a caller
-    that reads nothing back keeps running ahead of it.
-    """
-    device = resolve_device(device)
-    get = fields.__getitem__ if isinstance(fields, dict) else lambda n: getattr(fields, n)
-    leaves = [np.asarray(get(n)) for n in FrameBundle._fields]
-    flat = torch.from_numpy(np.concatenate([a.ravel().astype(np.float64) for a in leaves]))
+
+def _upload(arrays, device):
+    """The numpy `arrays` on `device` as float64 tensors of their shapes,
+    in one copy: packed into one float64 buffer (which holds every mask
+    and index exactly), and on a CUDA device copied from pinned memory
+    without waiting for the device, so a caller that reads nothing back
+    keeps running ahead of it."""
+    flat = torch.from_numpy(np.concatenate([a.ravel().astype(np.float64) for a in arrays]))
     if device.type == "cuda":
         flat = flat.pin_memory().to(device, non_blocking=True)
+    return [x.reshape(a.shape) for x, a in zip(torch.split(flat, [a.size for a in arrays]), arrays)]
 
+
+def _bundle_leaves(parts, dtype) -> FrameBundle:
     def conv(name, x):
         if name in _TIME_FIELDS:
             return x
@@ -262,9 +301,31 @@ def bundle_from_numpy(fields, device=None, dtype=torch.float64) -> FrameBundle:
             return x != 0
         return x.to(torch.int64 if name in _INT_FIELDS else dtype)
 
-    sizes = [a.size for a in leaves]
-    parts = torch.split(flat, sizes)
-    return FrameBundle(*(conv(n, x.reshape(a.shape)) for n, x, a in zip(FrameBundle._fields, parts, leaves)))
+    return FrameBundle(*(conv(n, x) for n, x in zip(FrameBundle._fields, parts)))
+
+
+def bundle_from_numpy(fields, device=None, dtype=torch.float64) -> FrameBundle:
+    """A `FrameBundle` on `device` (None: `default_device()`, the card or
+    an error) from numpy arrays keyed by field name
+    (a mapping, or a bundle of numpy leaves such as `uvio_tpu`'s). Times
+    stay float64, masks bool, indices int64; the rest takes `dtype`. The
+    leaves cross to the device together, in one copy (`_upload`).
+    """
+    get = _getter(fields)
+    leaves = [np.asarray(get(n)) for n in FrameBundle._fields]
+    return _bundle_leaves(_upload(leaves, resolve_device(device)), dtype)
+
+
+def stack_bundles(bundles, plan, device=None, dtype=torch.float64):
+    """(bundle, plan) of one frame of B sequences on `device`, in one
+    copy: the B bundles (each as `bundle_from_numpy` takes it) as one
+    `FrameBundle` with a leading axis B on every field, and their
+    `BatchPlan` (`plan_batch`) with its bits as bool tensors."""
+    gets = [_getter(b) for b in bundles]
+    leaves = [np.stack([np.asarray(g(n)) for g in gets]) for n in FrameBundle._fields]
+    bits = [np.asarray(getattr(plan, n), dtype=bool) for n in _PLAN_BITS]
+    parts = _upload(leaves + bits, resolve_device(device))
+    return _bundle_leaves(parts, dtype), plan._replace(**{n: x != 0 for n, x in zip(_PLAN_BITS, parts[len(leaves):])})
 
 
 class FramePlan(NamedTuple):
@@ -301,6 +362,43 @@ def plan_frame(fields, state_time: float) -> FramePlan:
         slam_init=bool(np.any(np.asarray(get("cand_ids")) >= 0)),
         marg=bool(get("marg_enable")),
     )
+
+
+class BatchPlan(NamedTuple):
+    """The plans of B sequences stepped together. `union` is what the
+    batched step runs: a branch runs if any sequence's plan runs it. The
+    other fields are each sequence's own decisions, (B,) or (B, U) bools
+    (numpy from `plan_batch`, tensors once `stack_bundles` uploaded them):
+    after a branch, a sequence whose own bit is off keeps the state it
+    had before the branch and gets the infos of the skipped branch."""
+
+    union: FramePlan
+    zupt_try: Any  # (B,)
+    uwb_rows: Any  # (B, U)
+    slam_init: Any  # (B,)
+    marg: Any  # (B,)
+
+
+_PLAN_BITS = ("zupt_try", "uwb_rows", "slam_init", "marg")
+
+
+def plan_batch(bundles, state_times) -> BatchPlan:
+    """The `BatchPlan` of one frame of B sequences: `plan_frame` of each
+    sequence's numpy bundle at its own state time before the step (after
+    a step, a sequence's state time is its bundle's `stamp_time`)."""
+    plans = [plan_frame(b, t) for b, t in zip(bundles, state_times, strict=True)]
+    if not plans:
+        raise ValueError("a batch needs at least one sequence")
+    U = len(plans[0].uwb_rows)
+    bits = {n: np.array([getattr(p, n) for p in plans], dtype=bool) for n in _PLAN_BITS}
+    bits["uwb_rows"] = bits["uwb_rows"].reshape(len(plans), U)
+    union = FramePlan(
+        zupt_try=bool(bits["zupt_try"].any()),
+        uwb_rows=tuple(bool(r) for r in bits["uwb_rows"].any(axis=0)),
+        slam_init=bool(bits["slam_init"].any()),
+        marg=bool(bits["marg"].any()),
+    )
+    return BatchPlan(union, **bits)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -353,10 +451,23 @@ def _select_infos(pred, a, b):
     }
 
 
-def _uwb_drain(st, fb, plan, cfg):
+def _own(bit, after, before):
+    """`after`; in a batched step (`bit` not None), `before` for a
+    sequence whose own plan skips the branch (a state or a tensor). A
+    select, never a product with a mask: a skipped sequence's branch
+    result may be non-finite."""
+    if bit is None:
+        return after
+    if isinstance(after, FilterState):
+        return where_state(bit, after, before)
+    return torch.where(bit, after, before)
+
+
+def _uwb_drain(st, fb, plan, cfg, own=None):
     """Per UWB range set the plan runs: propagate (no clone) to its stamp,
     then the sequential range updates. Returns (state, accepted (U,A),
-    chi2 (U,A); zeros on rows the plan skips)."""
+    chi2 (U,A); zeros on rows the plan skips). `own`: a sequence's
+    `BatchPlan` bits in a batched step, else None."""
     L = cfg.layout
     U = fb.uwb_ranges.shape[0] if cfg.uwb_sets_per_frame > 0 else 0
     A = L.max_anchors
@@ -370,6 +481,7 @@ def _uwb_drain(st, fb, plan, cfg):
             rows.append(zeros(A))
             chi2.append(no_chi2)
             continue
+        before = st
         st, _ = propagate_mean_cov(
             st, L, fb.uwb_imu_t[k], fb.uwb_imu_w[k], fb.uwb_imu_a[k], cfg.noises,
             cfg.gravity_mag, integration=cfg.integration, stamp_time=fb.uwb_stamp[k],
@@ -385,17 +497,21 @@ def _uwb_drain(st, fb, plan, cfg):
         # 0.015 m ATE with the refresh, 0.018 m with the reference's FEJ
         # semantics). Clone and landmark FEJ are untouched.
         st = st.replace(q_fej=st.q, p_fej=st.p, v_fej=st.v)
-        rows.append(info["accepted"])
-        chi2.append(info["chi2"])
+        run = None if own is None else own.uwb_rows[k]
+        st = _own(run, st, before)
+        rows.append(_own(run, info["accepted"], zeros(A)))
+        chi2.append(_own(run, info["chi2"], no_chi2))
     return st, torch.stack(rows), torch.stack(chi2)
 
 
-def _visual(state, fb, plan, cfg):
-    """UWB drain -> propagate+clone -> MSCKF -> SLAM -> marginalization."""
+def _visual(state, fb, plan, cfg, own=None):
+    """UWB drain -> propagate+clone -> MSCKF -> SLAM -> marginalization.
+    `own`: a sequence's `BatchPlan` bits in a batched step, else None."""
     L = cfg.layout
     S, Fc = L.max_slam, fb.cand_ids.shape[0]
     zeros = lambda *shape: torch.zeros(shape, dtype=torch.bool, device=state.cov.device)
-    st, uwb_acc, uwb_chi2 = _uwb_drain(state, fb, plan, cfg)
+    bit = lambda name: None if own is None else getattr(own, name)
+    st, uwb_acc, uwb_chi2 = _uwb_drain(state, fb, plan, cfg, own)
 
     st = propagate_and_clone(
         st, L, fb.imu_t, fb.imu_w, fb.imu_a, cfg.noises, cfg.gravity_mag,
@@ -417,16 +533,19 @@ def _visual(state, fb, plan, cfg):
         cov_ok = cov_ok & sinfo["cov_ok"]
         slam_kept, slam_failed, slam_chi2 = sinfo["kept"], sinfo["failed"], sinfo["chi2"]
         if plan.slam_init:
-            st, ii = slam_delayed_init(
+            st_i, ii = slam_delayed_init(
                 st, L, fb.cand_uv, fb.cand_mask, fb.cand_slots, fb.cand_ids, cfg.cam_model,
                 sigma_pix=cfg.sigma_pix, chi2_mult=cfg.chi2_mult,
             )
-            slam_inited, init_chi2 = ii["inited"], ii["chi2"]
+            st = _own(bit("slam_init"), st_i, st)
+            slam_inited = _own(bit("slam_init"), ii["inited"], slam_inited)
+            init_chi2 = _own(bit("slam_init"), ii["chi2"], init_chi2)
 
     if plan.marg:
+        st_m = st
         if S > 0:  # a no-op for the global representations
-            st = anchor_change(st, L, fb.marg_slot, st.clone_head)
-        st = marginalize_clone(st, L, fb.marg_slot)
+            st_m = anchor_change(st_m, L, fb.marg_slot, st_m.clone_head)
+        st = _own(bit("marg"), marginalize_clone(st_m, L, fb.marg_slot), st)
 
     infos = {
         "msckf": minfo,
@@ -443,14 +562,22 @@ def _visual(state, fb, plan, cfg):
     return st, infos
 
 
-def full_filter_step(state: FilterState, fb: FrameBundle, plan: FramePlan, *, cfg: FullStepConfig):
+def full_filter_step(state: FilterState, fb: FrameBundle, plan, *, cfg: FullStepConfig):
     """One complete camera-frame step (module docstring). Returns
     (new_state, infos): zupt_accepted, msckf tri_ok/kept/num_used/cov_ok,
     slam kept/failed/inited, uwb accepted, cov_ok as `uvio_tpu` returns
     them, and the gates' chi2 statistics (msckf chi2, slam_chi2,
-    slam_init_chi2, uwb_chi2)."""
+    slam_init_chi2, uwb_chi2).
+
+    `plan` is the bundle's `FramePlan`, or, for one sequence of a batched
+    step (under vmap), a `BatchPlan` whose bits are that sequence's: the
+    step then runs the union's branches and keeps each one's result only
+    where the sequence's own bit is set."""
     L = cfg.layout
-    st_v, infos = _visual(state, fb, plan, cfg)
+    own = plan if isinstance(plan, BatchPlan) else None
+    if own is not None:
+        plan = own.union
+    st_v, infos = _visual(state, fb, plan, cfg, own)
     if not (cfg.try_zupt and plan.zupt_try):
         infos["zupt_accepted"] = torch.zeros((), dtype=torch.bool, device=state.cov.device)
         return st_v, infos
@@ -464,16 +591,51 @@ def full_filter_step(state: FilterState, fb: FrameBundle, plan: FramePlan, *, cf
         st_z, z_acc, _ = zupt_explicit_update(*zargs, integration=cfg.integration, **kwargs)
     else:
         st_z, z_acc, _ = zupt_try_update(*zargs, **kwargs)
+    if own is not None:  # a sequence that did not try accepts nothing
+        z_acc = z_acc & own.zupt_try
     # an accepted ZUPT skips the visual part: select its state and the
     # infos of a frame with no visual update
     infos = {**_select_infos(z_acc, _skipped(infos), infos), "zupt_accepted": z_acc}
     return where_state(z_acc, st_z, st_v), infos
 
 
-def make_full_step(cfg: FullStepConfig):
-    """The full step, `step(state, fb, plan) -> (state, infos)`. Raises
-    unless float32 matmuls run in full precision (README "Numerics")."""
+def _check_full_step(cfg: FullStepConfig):
     check_full_precision()
     if cfg.integration not in INTEGRATIONS:
         raise ValueError(f"integration {cfg.integration!r} is not one of {INTEGRATIONS}")
+
+
+def make_full_step(cfg: FullStepConfig):
+    """The full step, `step(state, fb, plan) -> (state, infos)`. Raises
+    unless float32 matmuls run in full precision (README "Numerics")."""
+    _check_full_step(cfg)
     return lambda state, fb, plan: full_filter_step(state, fb, plan, cfg=cfg)
+
+
+def make_batched_full_step(cfg: FullStepConfig, group=None):
+    """`full_filter_step` over B independent sequences,
+    `step(state, fb, plan) -> (state, infos)`: a leading axis B on every
+    state field, bundle field and info; `fb` and `plan` from
+    `stack_bundles(bundles, plan_batch(bundles, state_times))`.
+    `uvio_tpu`'s `jax.vmap(full_filter_step)`: each sequence's state and
+    infos are those of the single step on that sequence alone. With a
+    `torch.distributed` process group each rank steps B / world sequences
+    and every rank returns the whole batch; B must divide evenly.
+
+    One `torch.func.vmap` of the single-sequence code, nothing else: an
+    operation that vmap cannot batch raises, and no sequence is ever
+    stepped on its own. Raises unless float32 matmuls run in full
+    precision, as `make_full_step`."""
+    _check_full_step(cfg)
+
+    def one(fields, fb, bits, union):
+        st, infos = full_filter_step(FilterState(**dict(zip(FIELDS, fields))), fb,
+                                     BatchPlan(union, *bits), cfg=cfg)
+        return tuple(getattr(st, n) for n in FIELDS), infos
+
+    def step(state, fb, plan):
+        fields, infos = _over_batch(one, group, tuple(getattr(state, n) for n in FIELDS), fb,
+                                    tuple(getattr(plan, n) for n in _PLAN_BITS), union=plan.union)
+        return FilterState(**dict(zip(FIELDS, fields))), infos
+
+    return step

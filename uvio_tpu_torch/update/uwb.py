@@ -48,7 +48,7 @@ def _range_jacobian(state: FilterState, layout: StateLayout, anchor_idx: int):
     _, d, u, _ = predicted_range(state, anchor_idx)
     R = quat_to_rot(state.q)
     k = 1.0 + state.anchors_alpha[anchor_idx]
-    H = torch.zeros((1, L.dim), dtype=state.cov.dtype, device=state.cov.device)
+    H = state.cov.new_zeros((1, L.dim))
     # dp_U/dtheta = R^T [p_IinU]_x (JPL left error), dy/dp_U = -(1+a) u^T
     H[0, L.theta_off : L.theta_off + 3] = -k * (u @ (R.T @ skew(state.uwb_p_IinU)))
     H[0, L.p_off : L.p_off + 3] = -k * u

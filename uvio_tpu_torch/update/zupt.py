@@ -54,7 +54,7 @@ def _inertial_system(state, layout, imu_t, imu_w, imu_a, noises, gravity_mag, no
     smask = torch.cat([torch.ones((1,), dtype=torch.bool, device=device), valid])
 
     eye3 = torch.eye(3, dtype=dtype, device=device)
-    H_one = torch.zeros((6, L.dim), dtype=dtype, device=device)
+    H_one = state.cov.new_zeros((6, L.dim))
     H_one[3:6, L.theta_off : L.theta_off + 3] = skew(Rg_fej)
     H_one[0:3, L.bg_off : L.bg_off + 3] = eye3
     H_one[3:6, L.ba_off : L.ba_off + 3] = eye3
@@ -77,7 +77,7 @@ def _compress(layout, Hm, rm, r_diag, rmask, noise_mult):
     w = torch.where(rmask, 1.0 / torch.sqrt(r_diag / noise_mult), torch.zeros_like(r_diag))
     Q9, R9 = torch.linalg.qr(_blocks9(L, Hm * w[:, None]), mode="reduced")  # (6M,9),(9,9)
     rc = Q9.T @ (rm * w)
-    Hc = torch.zeros((9, L.dim), dtype=Hm.dtype, device=Hm.device)
+    Hc = Hm.new_zeros((9, L.dim))
     Hc[:, L.theta_off : L.theta_off + 3] = R9[:, 0:3]
     Hc[:, L.bg_off : L.bg_off + 3] = R9[:, 3:6]
     Hc[:, L.ba_off : L.ba_off + 3] = R9[:, 6:9]
@@ -89,7 +89,7 @@ def _bias_inflated_cov(state, layout, noises, dt_sum):
     (`model_time_varying_bias`, UpdaterZeroVelocity.cpp:195-204, 268-276)."""
     L = layout
     dtype = state.cov.dtype
-    q = torch.zeros((L.dim,), dtype=dtype, device=state.cov.device)
+    q = state.cov.new_zeros((L.dim,))
     q[L.bg_off : L.bg_off + 3] = (dt_sum * noises.sigma_wb**2).to(dtype)
     q[L.ba_off : L.ba_off + 3] = (dt_sum * noises.sigma_ab**2).to(dtype)
     return state.cov + torch.diag(q)
