@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and run its raw-image -> pose step, its
 UWB + SLAM filter step, its live host loop (the managers, fused and
-staged), its image trackers feeding that loop, and its bundle adjustment
-and map backend on one NVIDIA GPU: the quickest proof that
-`uvio_tpu_torch` works on the card.
+staged), its image trackers feeding that loop, its bundle adjustment and
+map backend, and the estimator configurations of `uvio_tpu`'s end-to-end
+regressions on one NVIDIA GPU: the quickest proof that `uvio_tpu_torch`
+works on the card.
 
     python3 chip_smoke.py
 
@@ -101,7 +102,13 @@ Phases, each printing one JSON line:
               per `feed`. (d) One `feed`'s device work through the kernels and
               through their plain versions from the same tracker state and
               RANSAC noise: FAST-9 0.0, LK masks equal and <= 3.4e-4 px, the
-              same detections.
+              same detections. (e) `KLTTracker(histeq="CLAHE")` (cv2 on the
+              host) on 12 rendered 752x480 frames (seed 3): >= 20 tracks a
+              frame, a track of length >= 8, median drift < 30 px, 1 fast9 (+ 1
+              lk_track after the first) launch per `feed`, the first frame's
+              detections equal to a CPU tracker's given the same RANSAC noise;
+              and `ArucoTracker` on tests/test_torch_aruco.py:22's tag scene
+              under that test's gates (cv2.aruco must be there).
  11. init   — the in-motion initializer and the dataset entry point. (a) The
               scenario of tests/test_dynamic_init.py's end-to-end test
               (seed 11, circle_trajectory(24 s, lap 8 s), 11 clones, 15 SLAM
@@ -121,12 +128,15 @@ Phases, each printing one JSON line:
               tests/test_euroc_reader.py): >= 25 poses, posyaw ATE < 0.5 m,
               exactly 1 fast9 + 1 lk_track launch per `feed` after the first
               (1 + 0 on it), the native host library built.
- 12. streams — the vendored UWB stream (`data/streams/uwb`, 450 frames)
-              through the port's `load_config` -> `UVioManager` on the card,
-              seeded from its `init.txt`, under the gates of the reference's
-              regression against the C++ estimator's own output: SE(3) ATE
-              <= `ref_est.txt`'s, final anchor error <= `anchors_est.txt`'s;
-              cov_ok on every step; ms per frame (`last_timing`).
+ 12. streams — the vendored streams (`data/streams/{mono,stereo,uwb}`, 450
+              frames each) through the port's `load_config` -> `VioManager` /
+              `UVioManager` on the card, seeded from their `init.txt`, under
+              the gates of the reference's regressions against the C++
+              estimator's own output: SE(3) ATE <= `ref_est.txt`'s, and final
+              anchor error <= `anchors_est.txt`'s (uwb) or orientation ATE
+              <= 1.2x the reference's (mono, stereo); cov_ok on every step; ms
+              per frame (`last_timing`). They run in the worker pool of phase
+              15, beside its scenarios when both phases run.
  13. backend — bundle adjustment and the map backend, float64, and the
               staged managers against `uvio_tpu`. (b) The scenario of
               tests/test_map_backend.py:45 (seed 11, a 16 s circle, 50
@@ -170,6 +180,21 @@ Phases, each printing one JSON line:
               `examples/scaling_torch.py` as two subprocesses side by side,
               at reduced repetitions: exit code 0, their JSON lines echoed.
               It runs no hand kernel.
+ 15. estimator — the sixteen scenarios of `uvio_tpu`'s slow end-to-end
+              regressions (tests/torch_e2e_scenarios.py: mono MSCKF with NEES,
+              SLAM beating MSCKF-only, stereo, the six SLAM representations,
+              the camera-IMU time offset, online extrinsics, the discrete and
+              analytical integrators, IMU intrinsics seeded and calibrated,
+              UWB) through the live managers on cuda:0 in float64, with the
+              reference tests' own gates; up to 6 spawned workers side by
+              side (one host thread and CUDA context each; the count follows
+              the host's cores and is printed). Printed per case: ATE, the
+              gate, frames, the manager's ms per frame (`last_timing`,
+              median; shared host), host syncs per frame of the manager's
+              calls on frames 20-24, and the final calibration error beside
+              its start where one is estimated. Any failed case fails the
+              run. It runs no hand kernel (the features come from the
+              simulator).
 Then the kernel table (with each kernel's bound: the larger of its bytes
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted from
 this run's inputs; `launches` summed over the slice, the tracker runs and
@@ -179,7 +204,7 @@ result line. Needs no network; any failed check raises.
     python3 chip_smoke.py --phases init,streams
 
 runs only the named phases (comma list of kernels, slice, full_step,
-manager, tracker, init, streams, backend, batch; default all): the card and build phases
+manager, tracker, init, streams, backend, batch, estimator; default all): the card and build phases
 always run, and the kernel table is printed only with `kernels`.
 """
 
@@ -1397,13 +1422,96 @@ def tracker_kernels_vs_plain(K, cam, frames, card):
         raise RuntimeError("the kernels disagree with their plain versions inside the tracker")
 
 
+def tracker_clahe(K, card):
+    """(e) `KLTTracker(histeq="CLAHE")` on 12 rendered 752x480 frames
+    (seed 3) under the gates of tests/test_torch_tracker.py:187; its first
+    frame's detections equal a CPU tracker's on the same frame. Returns
+    the launch counts."""
+    import numpy as np
+    import torch
+
+    from uvio_tpu_torch.frontend.klt import gumbel_noise
+    from uvio_tpu_torch.frontend.tracker import KLTTracker
+    from uvio_tpu_torch.sim import SimParams, Simulator, circle_trajectory
+
+    sim = Simulator(SimParams(sim_freq_cam=10.0, num_pts=60, seed=3), trajectory=circle_trajectory(duration=12.0))
+    cam = sim.params.cameras[0]
+    frames = []
+    for _ in range(12):
+        tc, _ = sim.get_next_cam()
+        frames.append((tc, sim.render_image(tc)))
+    make = lambda device: KLTTracker(cam.intrinsics, cam.model, num_features=150, grid=(6, 8), histeq="CLAHE",
+                                     device=device)
+    tracker = make("cuda:0")
+    noise = gumbel_noise((64, 8, tracker.cap), torch.Generator().manual_seed(5), "cpu")
+    lengths, prev, drifts, n_tracks, per_feed, feed_ms = {}, {}, [], [], [], []
+    K.reset_launch_counts()
+    for i, (tc, img) in enumerate(frames):
+        before = dict(K.launch_counts)
+        t0 = time.perf_counter()
+        ids, uvs = tracker.feed(tc, img, gumbel=noise.to(tracker.device) if i == 0 else None)
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+        per_feed.append(tuple(K.launch_counts[k] - before[k] for k in ("fast9", "lk_track", "lk_level")))
+        if i == 0:
+            first = [(ids, uvs), make("cpu").feed(tc, img, gumbel=noise)]  # the CPU runs the plain versions
+        n_tracks.append(len(ids))
+        for fid, uv in zip(ids, uvs):
+            lengths[fid] = lengths.get(fid, 0) + 1
+            if fid in prev:
+                drifts.append(float(np.linalg.norm(uv - prev[fid])))
+            prev[fid] = uv
+    launches = dict(K.launch_counts)
+    same_first = all(np.array_equal(a, b) for a, b in zip(*first))
+    rec = {"phase": "tracker", "part": "CLAHE, KLTTracker(histeq=\"CLAHE\")", "frames": len(frames),
+           "min_tracks": min(n_tracks), "longest_track": max(lengths.values()),
+           "median_drift_px": statistics.median(drifts), "first_frame_equals_cpu": same_first,
+           "first_frame_detections": len(first[0][0]), "tracker_feed_ms_median": statistics.median(feed_ms[3:]),
+           "fast9_lk_track_lk_level_launches_per_feed": sorted(set(per_feed[1:])),
+           "first_feed_launches": per_feed[0], "launches": launches, "card": card}
+    log(rec)
+    if not (min(n_tracks) >= 20 and max(lengths.values()) >= 8 and statistics.median(drifts) < 30.0
+            and same_first and per_feed[0] == (1, 0, 0) and all(x == (1, 1, 0) for x in per_feed[1:])):
+        raise RuntimeError("the CLAHE tracker run failed its gates")
+    return launches
+
+
+def tracker_aruco(card):
+    """(e) `ArucoTracker` (host cv2) on the scene of tests/test_torch_aruco.py:22,
+    under that test's gates."""
+    import cv2
+    import numpy as np
+
+    from uvio_tpu_torch.frontend.aruco import ARUCO_ID_BASE, ArucoTracker
+
+    def render_tag(tag_id=7, size=120, pos=(60, 40), img_hw=(240, 320)):
+        d = cv2.aruco.getPredefinedDictionary(cv2.aruco.DICT_6X6_250)
+        img = np.full(img_hw, 180, np.uint8)
+        img[pos[0]:pos[0] + size, pos[1]:pos[1] + size] = cv2.aruco.generateImageMarker(d, tag_id, size)
+        return img
+
+    tr = ArucoTracker()
+    ids, uvs = tr.feed(0.0, render_tag())
+    ids2, _ = tr.feed(0.1, render_tag(pos=(70, 50)))
+    ids3, uv3 = tr.feed(0.2, np.full((240, 320), 128, np.uint8))
+    rec = {"phase": "tracker", "part": "ArUco, ArucoTracker", "cv2": cv2.__version__,
+           "ids": sorted(int(i) for i in ids), "u_range": [float(uvs[:, 0].min()), float(uvs[:, 0].max())],
+           "v_range": [float(uvs[:, 1].min()), float(uvs[:, 1].max())], "ids_second_frame_same": set(ids2) == set(ids),
+           "ids_empty_frame": len(ids3), "card": card}
+    log(rec)
+    if not (len(ids) == 4 and set(ids) == {ARUCO_ID_BASE + 4 * 7 + c for c in range(4)}
+            and uvs[:, 0].min() >= 35 and uvs[:, 0].max() <= 165 and uvs[:, 1].min() >= 55
+            and uvs[:, 1].max() <= 185 and set(ids2) == set(ids) and len(ids3) == 0 and uv3.shape == (0, 2)):
+        raise RuntimeError("the ArUco tracker failed its gates")
+
+
 def tracker_phase(K, card):
     """The image trackers on the card (module docstring, phase 10):
     {path: launch counts}."""
     mono, cam, frames = tracker_mono_hard(K, card)
     by_path = {"tracker_mono": mono, "tracker_stereo": tracker_stereo(K, card),
-               "tracker_descriptor": tracker_descriptor(K, card)}
+               "tracker_descriptor": tracker_descriptor(K, card), "tracker_clahe": tracker_clahe(K, card)}
     tracker_kernels_vs_plain(K, cam, frames, card)
+    tracker_aruco(card)
     return by_path
 
 
@@ -1704,21 +1812,24 @@ def init_phase(K, card):
     return {"run_euroc": init_run_euroc(K, card)}
 
 
-def streams_phase(card):
-    """The vendored UWB stream through the port's config loader and
-    `UVioManager` on the card (module docstring, phase 12)."""
+def stream_replay(stream, card):
+    """A vendored stream through the port's config loader and manager on
+    the card (module docstring, phase 12): its record, or an error when it
+    misses its gates."""
     import dataclasses
 
     import torch
 
     from uvio_tpu_torch.eval import ate, load_tum
+    from uvio_tpu_torch.manager import VioManager
     from uvio_tpu_torch.utils import load_config
     from uvio_tpu_torch.utils.streams import anchor_errors, replay
     from uvio_tpu_torch.uwb_manager import UVioManager
 
-    data = os.path.join(ROOT, "data", "streams", "uwb")
+    data = os.path.join(ROOT, "data", "streams", stream)
     cfg, _ = load_config(os.path.join(data, "config"))
-    mgr = UVioManager(dataclasses.replace(cfg, use_static_init=False, use_dynamic_init=False))
+    manager = UVioManager if stream == "uwb" else VioManager
+    mgr = manager(dataclasses.replace(cfg, use_static_init=False, use_dynamic_init=False))
     if mgr.device != torch.device("cuda:0"):
         raise RuntimeError(f"the manager runs on {mgr.device}")
     cov_ok = hooked_cov_ok(mgr)
@@ -1729,19 +1840,75 @@ def streams_phase(card):
     tg, qg, pg = load_tum(os.path.join(data, "gt.txt"))
     ours = ate(t, q, p, tg, qg, pg, method="se3")
     ref = ate(*load_tum(os.path.join(data, "ref_est.txt")), tg, qg, pg, method="se3")
-    anchors, anchors_ref = anchor_errors(mgr, data)
     cov_ok_all = all(bool(x.item()) for x in cov_ok)
-    rec = {"phase": "streams", "stream": "data/streams/uwb", "manager": "UVioManager", "dtype": cfg.dtype,
-           "frames": len(t), "ate_se3_rmse_pos_m": ours["rmse_pos"],
-           "ate_se3_rmse_pos_m_cpp_reference": ref["rmse_pos"], "ate_se3_rmse_ori_deg": ours["rmse_ori_deg"],
-           "ate_se3_rmse_ori_deg_cpp_reference": ref["rmse_ori_deg"], "anchor_rmse_m": anchors,
-           "anchor_rmse_m_cpp_reference": anchors_ref, "cov_ok_all": cov_ok_all, "steps": len(cov_ok),
-           "frame_ms_median": statistics.median(frame_ms[20:]), "frame_ms_mean": statistics.fmean(frame_ms[20:]),
-           "wall_s": wall, "card": card}
-    log(rec)
-    if not (len(t) > 400 and ours["rmse_pos"] <= ref["rmse_pos"] and anchors <= anchors_ref and cov_ok_all
-            and len(cov_ok) == len(t)):
-        raise RuntimeError("the vendored UWB stream failed the C++ reference's gates")
+    rec = {"phase": "streams", "stream": f"data/streams/{stream}", "manager": manager.__name__, "dtype": cfg.dtype,
+           "cameras": len(cfg.cameras), "max_slam": cfg.max_slam, "frames": len(t),
+           "ate_se3_rmse_pos_m": ours["rmse_pos"], "ate_se3_rmse_pos_m_cpp_reference": ref["rmse_pos"],
+           "ate_se3_rmse_ori_deg": ours["rmse_ori_deg"], "ate_se3_rmse_ori_deg_cpp_reference": ref["rmse_ori_deg"],
+           "cov_ok_all": cov_ok_all, "steps": len(cov_ok), "frame_ms_median": statistics.median(frame_ms[20:]),
+           "frame_ms_mean": statistics.fmean(frame_ms[20:]), "wall_s": wall, "card": card}
+    ok = len(t) > 400 and ours["rmse_pos"] <= ref["rmse_pos"] and cov_ok_all and len(cov_ok) == len(t)
+    if stream == "uwb":
+        anchors, anchors_ref = anchor_errors(mgr, data)
+        rec.update(anchor_rmse_m=anchors, anchor_rmse_m_cpp_reference=anchors_ref)
+        ok = ok and anchors <= anchors_ref
+    else:  # tests/test_vendored_streams.py's orientation gate
+        ok = ok and ours["rmse_ori_deg"] <= 1.2 * ref["rmse_ori_deg"]
+    if not ok:
+        raise RuntimeError(f"the vendored {stream} stream failed the C++ reference's gates: {rec}")
+    return rec
+
+
+STREAMS = ("stereo", "uwb", "mono")  # longest first, ahead of the scenarios
+
+
+def _init_pool_worker(root):
+    os.environ["OMP_NUM_THREADS"] = "1"  # before numpy and torch load: one host thread a worker
+    sys.path[:0] = [root, os.path.join(root, "tests")]
+    import torch
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def _pool_job(kind, name, card):
+    t0 = time.perf_counter()
+    if kind == "stream":
+        rec = stream_replay(name, card)
+    else:
+        import torch_e2e_scenarios
+
+        rec = {"phase": "estimator", **torch_e2e_scenarios.run(name, "cuda:0"), "card": card}
+    return {**rec, "job_seconds": time.perf_counter() - t0}
+
+
+def pool_phase(jobs, card):
+    """The `estimator` scenarios and the vendored streams (module
+    docstring, phases 12 and 15), side by side in spawned worker processes,
+    each with its own CUDA context and one host thread. Every record is
+    printed; any failed job fails the run once all have ended."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, as_completed
+
+    cores = len(os.sched_getaffinity(0))
+    workers = max(1, min(6, len(jobs), cores - 2))
+    log({"phase": "pool", "workers": workers, "host_cores": cores, "jobs": [f"{k}:{n}" for k, n in jobs]})
+    failed, t0 = [], time.perf_counter()
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_init_pool_worker, initargs=(ROOT,)) as pool:
+        futures = {pool.submit(_pool_job, kind, name, card): (kind, name) for kind, name in jobs}
+        for f in as_completed(futures):
+            kind, name = futures[f]
+            try:
+                log(f.result())
+            except Exception as e:  # reported with every other job's result, then fails the run below
+                failed.append(f"{kind}:{name}")
+                log({"phase": "estimator" if kind == "scenario" else "streams", "case": name, "failed": repr(e)[:4000]})
+    log({"phase": "pool", "seconds": time.perf_counter() - t0, "workers": workers, "failed": failed})
+    if failed:
+        raise RuntimeError(f"failed: {failed}")
 
 
 def backend_map(card):
@@ -2101,7 +2268,7 @@ def batch_phase(dev, card):
     batch_twins(card)
 
 
-PHASES = ("kernels", "slice", "full_step", "manager", "tracker", "init", "streams", "backend", "batch")
+PHASES = ("kernels", "slice", "full_step", "manager", "tracker", "init", "streams", "backend", "batch", "estimator")
 
 
 def main(argv=None):
@@ -2176,9 +2343,13 @@ def main(argv=None):
     if "init" in phases:
         by_path.update(init_phase(K, card))
         done("init")
-    if "streams" in phases:
-        streams_phase(card)
-        done("streams")
+    if phases & {"streams", "estimator"}:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        import torch_e2e_scenarios as scenarios
+
+        pool_phase([("stream", n) for n in STREAMS if "streams" in phases]
+                   + [("scenario", n) for n in scenarios.SCENARIOS if "estimator" in phases], card)
+        done("+".join(p for p in ("streams", "estimator") if p in phases))
     if "backend" in phases:
         backend_phase(card)
         done("backend")

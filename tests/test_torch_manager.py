@@ -36,13 +36,14 @@ SMALL = dict(max_clones=5, max_msckf_in_update=16, max_imu_batch=32)
 
 # ---- helpers, shared with the other manager test files ----------------
 
-def sim_events(n_frames, seed=3, uwb_anchors=None, num_pts=40, **traj):
+def sim_events(n_frames, seed=3, uwb_anchors=None, num_pts=40, params=None, **traj):
     """(sim, events): one run of the port's simulator (200 Hz IMU, 10 Hz
-    camera, 20 Hz UWB when anchors are given) as a list of
+    camera, 20 Hz UWB when anchors are given; `params` holds more
+    `SimParams` fields) as a list of
     ("imu", t, w, a) | ("uwb", t, ranges) | ("cam", t, obs)."""
     sim = Simulator(
         SimParams(sim_freq_imu=200.0, sim_freq_cam=10.0, num_pts=num_pts, seed=seed,
-                  uwb_anchors=uwb_anchors or {}),
+                  uwb_anchors=uwb_anchors or {}, **(params or {})),
         trajectory=circle_trajectory(duration=n_frames / 10.0 + 3.0, **traj),
     )
     events, frames = [], 0
@@ -92,11 +93,13 @@ def assert_states_close(jstate, tstate, where, atol=1e-8):
 class Pair:
     """A `uvio_tpu` manager and the port's, fed together; records the
     bundles each hands to its fused step (staged managers hand none) and
-    compares everything after a frame."""
+    compares everything after a frame; `ji`, `ti` keep the infos of every
+    fused step."""
 
     def __init__(self, jmgr, tmgr):
         self.j, self.t = jmgr, tmgr
         self.jb, self.tb = [], []
+        self.ji, self.ti = [], []
         self.zupt_accepts = []
         self.checked = 0
         if not tmgr.cfg.fused_step:
@@ -105,11 +108,14 @@ class Pair:
 
         def j_hook(state, fb):
             self.jb.append(fb)
-            return j_full(state, fb)
+            out = j_full(state, fb)
+            self.ji.append(out[1])
+            return out
 
         def t_hook(state, fields):
             self.tb.append(fields)
             out = t_full(state, fields)
+            self.ti.append(out[1])
             self.zupt_accepts.append(bool(out[1]["zupt_accepted"]))
             return out
 
@@ -138,7 +144,10 @@ class Pair:
         assert t.slot_times == j.slot_times and t._head == j._head, where
         assert t.slam_slot_by_fid == j.slam_slot_by_fid, where
         assert t.slam_fail == j.slam_fail and t.slam_consumed_t == j.slam_consumed_t, where
-        assert t._last_prop_dt == j._last_prop_dt
+        if t.cfg.calib_cam_timeoffset:  # the interval depends on the estimated offset
+            np.testing.assert_allclose(t._last_prop_dt, j._last_prop_dt, rtol=0, atol=1e-12, err_msg=where)
+        else:
+            assert t._last_prop_dt == j._last_prop_dt
         np.testing.assert_allclose(t._dt_host, j._dt_host, rtol=0, atol=1e-10)
         np.testing.assert_allclose(t.distance, j.distance, rtol=0, atol=1e-8)
         assert sorted(t.db.features) == sorted(j.db.features), where
@@ -154,11 +163,12 @@ class Pair:
 def make_pair(sim, jcls=JVioManager, tcls=VioManager, jconfig=JVioConfig, tconfig=VioConfig,
               jextra=None, textra=None, **cfg):
     """Both managers on the same configuration (`jextra`/`textra` hold the
-    fields whose values are objects of each package)."""
-    j = jcls(jconfig(sigma_pix=sim.params.sigma_pix, cameras=sim_cameras(sim, JCam),
-                     **{**SMALL, **cfg, **(jextra or {})}))
-    t = tcls(tconfig(sigma_pix=sim.params.sigma_pix, cameras=sim_cameras(sim, TCam), device="cpu",
-                     **{**SMALL, **cfg, **(textra or {})}))
+    fields whose values are objects of each package, the simulator's
+    cameras unless they name others)."""
+    j = jcls(jconfig(sigma_pix=sim.params.sigma_pix,
+                     **{"cameras": sim_cameras(sim, JCam), **SMALL, **cfg, **(jextra or {})}))
+    t = tcls(tconfig(sigma_pix=sim.params.sigma_pix, device="cpu",
+                     **{"cameras": sim_cameras(sim, TCam), **SMALL, **cfg, **(textra or {})}))
     return Pair(j, t)
 
 

@@ -1,5 +1,6 @@
 """Port parity, simulator: the float64 B-spline kinematics (closed-form
-derivatives in the port, `jax.jacfwd` in `uvio_tpu`) agree to 1e-9; the
+derivatives in the port, `jax.jacfwd` in `uvio_tpu`) agree to 1e-9 and its
+poses (`pose_at`) to 1e-12; the
 same seed gives the same IMU stream and feature map; rendered frames
 agree to 1e-3 (float32 output of float64 blob sums); the camera tracks
 (`get_next_cam`) carry the same ids with uv to 1e-9 and the UWB ranges
@@ -51,6 +52,25 @@ def test_state_at_matches(sims):
     b = tb.state_at(ts.controls, ts.t0_traj, ts.dt_ctrl, torch.as_tensor(t))
     for k in ("R_GtoI", "p_IinG", "v_IinG", "a_IinG", "w_IinI"):
         np.testing.assert_allclose(b[k].numpy(), np.asarray(a[k]), rtol=0, atol=1e-9, err_msg=k)
+
+
+def test_pose_at_matches(sims):
+    """`pose_at` over a batch of times (control knots, both ends and
+    outside the spline, where the segment index is clamped) is
+    `pose_at_batch`'s T_ItoG to 1e-12, and the pose of `state_at`."""
+    from uvio_tpu.sim import bspline as jb
+
+    from uvio_tpu_torch.sim import bspline as tb
+
+    js, ts = sims
+    t = np.concatenate([np.linspace(js.t_start - 0.5, js.t_end + 0.5, 45), js.t0_traj + js.dt_ctrl * np.arange(3, 8)])
+    a = np.asarray(jb.pose_at_batch(js.controls, js.t0_traj, js.dt_ctrl, jnp.asarray(t)))
+    b = tb.pose_at(ts.controls, ts.t0_traj, ts.dt_ctrl, torch.as_tensor(t))
+    assert b.shape == (len(t), 4, 4) and b.dtype == torch.float64
+    np.testing.assert_allclose(b.numpy(), a, rtol=0, atol=1e-12)
+    st = tb.state_at(ts.controls, ts.t0_traj, ts.dt_ctrl, torch.as_tensor(t))
+    np.testing.assert_allclose(b[:, :3, :3].numpy(), st["R_GtoI"].transpose(-1, -2).numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(b[:, :3, 3].numpy(), st["p_IinG"].numpy(), rtol=0, atol=1e-12)
 
 
 def test_imu_stream_and_map_match(sims):

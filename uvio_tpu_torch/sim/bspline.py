@@ -52,18 +52,31 @@ def _basis(u):
     return b, db, ddb
 
 
-def state_at(controls: torch.Tensor, t0: float, dt: float, t: torch.Tensor):
-    """Kinematic state at times t (B,): dict of R_GtoI (B,3,3), p_IinG,
-    v_IinG, a_IinG (B,3) and w_IinI (B,3), the angular velocity in the
-    IMU frame."""
+def _segment(controls, t0, dt, t):
+    """(T_{i-1}, [Omega_1, Omega_2, Omega_3], u) of the spline segment
+    holding each time of t (B,)."""
     n = controls.shape[0]
     t = torch.as_tensor(t, dtype=_F64)
     s0 = (t - t0) / dt
     i1 = torch.clamp(torch.floor(s0).long(), 1, n - 3)
     Ts = [controls[i1 + k] for k in (-1, 0, 1, 2)]
-    T0 = Ts[0]
-    w = [log_se3(inv_se3(Ts[k]) @ Ts[k + 1]) for k in range(3)]  # Omega_1..3
-    u = (t - t0) / dt - i1.to(_F64)
+    w = [log_se3(inv_se3(Ts[k]) @ Ts[k + 1]) for k in range(3)]
+    return Ts[0], w, s0 - i1.to(_F64)
+
+
+def pose_at(controls: torch.Tensor, t0: float, dt: float, t: torch.Tensor):
+    """T_ItoG at times t (B,): (B,4,4) float64 (`uvio_tpu`'s `pose_at`
+    over a batch, `pose_at_batch`)."""
+    T0, w, u = _segment(controls, t0, dt, t)
+    b = _basis(u)[0]
+    return T0 @ exp_se3(b[:, 0, None] * w[0]) @ exp_se3(b[:, 1, None] * w[1]) @ exp_se3(b[:, 2, None] * w[2])
+
+
+def state_at(controls: torch.Tensor, t0: float, dt: float, t: torch.Tensor):
+    """Kinematic state at times t (B,): dict of R_GtoI (B,3,3), p_IinG,
+    v_IinG, a_IinG (B,3) and w_IinI (B,3), the angular velocity in the
+    IMU frame."""
+    T0, w, u = _segment(controls, t0, dt, t)
     b, db, ddb = _basis(u)
     A, dA, ddA = [], [], []
     for k in range(3):
