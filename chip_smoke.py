@@ -170,7 +170,8 @@ Phases, each printing one JSON line:
               relative. (b) float32 (float64 time): cov_ok on every frame of
               every sequence, each final position within 2 cm of JAX
               float32's. (c) float32, the four sequences tiled to B = 1, 8,
-              32: a warm pass over 5 frames, then 20 timed frames (and the
+              32: a warm pass over the 20 timed frames (it captures the graphs
+              they need), then the 20 timed frames (and the
               single step on sequence 0's frames by the same clock); per B
               ms per batched step (host clock to a synchronize), sequence-
               frames/s, kernel launches of one step (profiler), host syncs
@@ -195,6 +196,18 @@ Phases, each printing one JSON line:
               its start where one is estimated. Any failed case fails the
               run. It runs no hand kernel (the features come from the
               simulator).
+The steps run as `uvio_tpu_torch` runs them on the card: each graphed
+(`uvio_tpu_torch/graphs.py`, the port's `jax.jit`), one CUDA graph replay
+a frame for every key already captured, the hand kernels inside the
+graphs, their launches counted at each replay. Phases slice, full_step,
+manager, tracker (a) and (b), batch and estimator also print a
+"compiled step" line each: the eager step against the graphed one in ms a
+frame by the host clock, alternated eager, graphed, graphed, eager;
+launch calls, graph launches, memcpy calls and device kernels of one step
+of each by the profiler; the graphs captured, their warm-up and capture
+ms and the memory their pools hold. The slice and tracker (a) also hold
+the hand kernels to one `fast9` and one `lk_track` a step or `feed` by
+the profiler's kernel names, beside the replay count.
 Then the kernel table (with each kernel's bound: the larger of its bytes
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted from
 this run's inputs; `launches` summed over the slice, the tracker runs and
@@ -619,7 +632,7 @@ def slice_steps(dev, sim, imgs, stamps, imu):
     """The fused image -> pose step on the rendered frames, float32 state
     on `dev`: (steps, step, make_carry, st0, frames, windows), where
     steps() runs the 59 steps from the first frame and yields
-    (state, info) after each."""
+    (state, info) after each; steps(eager=True) runs the eager step."""
     import numpy as np
     import torch
 
@@ -650,11 +663,12 @@ def slice_steps(dev, sim, imgs, stamps, imu):
         windows.append((on(t, f64), on(w, f64), on(a, f64), on(stamps[i], f64)))
         cur = stamps[i]
 
-    def steps():
+    def steps(eager=False):
         gen = torch.Generator(device=dev).manual_seed(0)
         st, carry = st0, make_carry(frames[0])
+        run = step.eager if eager else step
         for i, (t, w, a, ts) in enumerate(windows):
-            st, carry, info = step(st, carry, frames[i + 1], t, w, a, ts, generator=gen)
+            st, carry, info = run(st, carry, frames[i + 1], t, w, a, ts, generator=gen)
             yield st, info
 
     return steps, step, make_carry, st0, frames, windows
@@ -697,23 +711,24 @@ def full_step_phase(dev, card):
     import torch
 
     def replay(dtype):
-        """(run, fx): run() replays every frame, synchronizes (unless told
-        not to) and returns per-frame device results."""
+        """(run, fx, plans, step): run() replays every frame through
+        `step` (or `fn`, over the first `n` frames), synchronizes (unless
+        told not to) and returns per-frame device results."""
         fx, step, plans, bundles, st0 = full_step_inputs(dev, dtype)
 
-        def run(sync=True):
+        def run(sync=True, fn=step, n=None):
             st, out = st0, []
-            for fb, plan in zip(bundles, plans):
-                st, info = step(st, fb, plan)
+            for fb, plan in list(zip(bundles, plans))[:n]:
+                st, info = fn(st, fb, plan)
                 out.append((st.p, st.cov.trace(), info))
             if sync:
                 torch.cuda.synchronize()
             return st, out
 
-        return run, fx, plans
+        return run, fx, plans, step
 
     # ---- float64: the same decisions as the JAX float64 replay --------
-    run64, fx, _ = replay(torch.float64)
+    run64, fx, _, step64 = replay(torch.float64)
     n = len(fx.bundles)
     st, out = run64()
     ref = fx.replays["f64"]
@@ -740,7 +755,7 @@ def full_step_phase(dev, card):
     # ---- float32: the bench precision, held to the JAX float32 replay; the
     # same replay counts what waits for the host inside the steps: nothing
     # should, over a whole replay, which takes every branch of the plan
-    run32, fx, plans = replay(torch.float32)
+    run32, fx, plans, step32 = replay(torch.float32)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
@@ -781,6 +796,22 @@ def full_step_phase(dev, card):
                   "sync_sources": sorted({str(w.message).split("\n")[0][:120] for w in caught}),
                   "card": card})
     log(rec32)
+
+    # ---- the compiled step: eager against graphed over 40 frames -------
+    def ms_per_frame(fn, n=40):
+        t0 = time.perf_counter()
+        run32(fn=fn, n=n)
+        return (time.perf_counter() - t0) / n * 1e3
+
+    timing = abba(lambda: ms_per_frame(step32.eager), lambda: ms_per_frame(step32))
+    fx32, _, plans32, bundles32, st32 = full_step_inputs(dev, torch.float32)
+    one = lambda fn: lambda: fn(st32, bundles32[30], plans32[30])
+    compiled_step_line("full_step", "full_filter_step, float32", card, [step32], timing,
+                       {"eager": launch_profile(one(step32.eager)), "graphed": launch_profile(one(step32))},
+                       distinct_plans=len(set(plans)), graphs_float64=step64.stats()["graphs"])
+    if not step32.stats()["graphs"] == step64.stats()["graphs"] == len(set(plans)):
+        raise RuntimeError(f"{step32.stats()['graphs']} and {step64.stats()['graphs']} graphs captured for "
+                           f"{len(set(plans))} distinct plans")
 
 
 class SyncCounter:
@@ -886,6 +917,7 @@ def manager_bench_scenario(dev, card):
             or final_diff > 1e-6 or not rec64["time_host_is_state_time"]):
         log({"first_bundle_past_1e-9": first_bad, "infos_differ": bad[:10]})
         raise RuntimeError("the live float64 loop does not reproduce the fixture")
+    step64 = mgr.full_step
 
     # ---- float32, live: accuracy gates, with every frame's syncs counted
     def live32(**kw):
@@ -926,6 +958,38 @@ def manager_bench_scenario(dev, card):
                   "bookkeeping_ms": mean_ms("marginalization"), "total_ms": mean_ms("total"),
                   "wall_ms_per_frame_all_120": 1e3 * wall / (n_warm + n), "card": card})
     log(rec32)
+
+    # ---- the compiled step: frames 20-39 of the live float32 loop with the
+    # graphed step and with the eager one; both managers take the gated
+    # run's graphed step, so no frame timed here captures
+    from uvio_tpu_torch.eval.capture import drive
+
+    shared = mgr.full_step
+
+    def live_ms(eager, frames=40):
+        sim_t, m = bench_scenario(n_warm + n, seed=7, max_slam=25, dtype="float32")
+        m.full_step = shared.eager if eager else shared
+        totals = []
+        drive(sim_t, m, frames, on_frame=lambda k, t: k >= n_warm and totals.append(m.last_timing["total"]))
+        return 1e3 * statistics.fmean(totals)
+
+    timing = abba(lambda: live_ms(True), lambda: live_ms(False))
+    fields, t_before = rec["bundles"][-1], float(rec["bundles"][-2]["stamp_time"])
+
+    def one_frame(fn):
+        def run():
+            m_step, saved = mgr.full_step, mgr._time_host
+            mgr.full_step, mgr._time_host = fn, t_before
+            try:
+                mgr._jit_full(mgr.state, fields)
+            finally:
+                mgr.full_step, mgr._time_host = m_step, saved
+        return run
+
+    compiled_step_line("manager", "UVioManager live frame (build + step + bookkeeping), float32, bench.py's "
+                       "scenario", card, [shared], timing,
+                       {"eager": launch_profile(one_frame(shared.eager)), "graphed": launch_profile(one_frame(shared))},
+                       graphs_float64=step64.stats()["graphs"], pool_mb_float64=step64.stats()["pool_bytes"] / 2**20)
 
 
 def manager_rest_then_async(card):
@@ -1046,9 +1110,20 @@ def manager_jax_checkpoint(card):
 
 def kernel_launches(run):
     """(kernel launches of any kind, CUDA graph launches, kernels run on
-    the device with graph nodes included) that run() makes, from
-    `torch.profiler`'s CUDA events (no operator events: they cost the
-    host more than the launches in a run of ~10^5 small operators)."""
+    the device with graph nodes included) that run() makes
+    (`launch_profile`)."""
+    p = launch_profile(run)
+    return int(p["kernel_launch_calls"]), int(p["graph_launches"]), int(p["device_kernels"])
+
+
+def launch_profile(run, steps=1):
+    """Per step of run(), which runs `steps` steps, from `torch.profiler`'s
+    CUDA events (no operator events: they cost the host more than the
+    launches in a run of ~10^5 small operators, and the raw events, not
+    `key_averages()`, which is slow over them): kernel launch calls, CUDA
+    graph launches, memcpy calls (the copies in and out of a graph among
+    them), kernels run on the device (graph nodes included), and the hand
+    kernels run on the device by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1058,12 +1133,45 @@ def kernel_launches(run):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    # the raw events: `key_averages()` is slow over the ~10^5 launches of
-    # a solver attempt
     events = prof.profiler.kineto_results.events()
-    return (sum(e.name() in keys for e in events), sum(e.name() == "cudaGraphLaunch" for e in events),
-            sum(e.device_type() == DeviceType.CUDA and not e.name().startswith(("Memcpy", "Memset"))
-                for e in events))
+    device = [e for e in events if e.device_type() == DeviceType.CUDA]
+    return {"kernel_launch_calls": sum(e.name() in keys for e in events) / steps,
+            "graph_launches": sum(e.name() == "cudaGraphLaunch" for e in events) / steps,
+            "memcpy_calls": sum(e.name().startswith("cudaMemcpy") for e in events) / steps,
+            "device_kernels": sum(not e.name().startswith(("Memcpy", "Memset")) for e in device) / steps,
+            "hand_kernels": {n: sum(f"::{n}" in e.name() for e in device) / steps
+                             for n in ("fast9_kernel", "lk_kernel", "lk_level_kernel")}}
+
+
+def abba(run_eager, run_graphed):
+    """ms a frame of the eager and the graphed path (each run returns its
+    ms a frame over the same frames), alternated eager, graphed, graphed,
+    eager, host clock."""
+    out = {"eager_ms": [], "graphed_ms": []}
+    for key, run in (("eager_ms", run_eager), ("graphed_ms", run_graphed), ("graphed_ms", run_graphed),
+                     ("eager_ms", run_eager)):
+        out[key].append(run())
+    return out
+
+
+def compiled_step_line(phase, part, card, graphed, timing=None, launches=None, **extra):
+    """The line of the compiled-step layer (`graphs.graphed`) for one path:
+    eager against graphed ms a frame (`abba`), launches a step of each
+    (`launch_profile`), and the graphs of the `graphed` callables: how
+    many, their warm-up and capture ms, the memory their pools hold."""
+    stats = [g.stats() for g in graphed]
+    rec = {"phase": phase, "part": part, "layer": "compiled step"}
+    if timing is not None:
+        rec.update({"eager_ms_per_frame": timing["eager_ms"], "graphed_ms_per_frame": timing["graphed_ms"],
+                    "eager_ms_median": statistics.median(timing["eager_ms"]),
+                    "graphed_ms_median": statistics.median(timing["graphed_ms"])})
+    if launches is not None:
+        rec["launches_per_step"] = launches
+    rec.update({"graphs": sum(x["graphs"] for x in stats), "warmup_ms": sum(x["warmup_ms"] for x in stats),
+                "capture_ms": sum(x["capture_ms"] for x in stats),
+                "pool_mb": sum(x["pool_bytes"] for x in stats) / 2**20, **extra, "card": card})
+    log(rec)
+    return rec
 
 
 def _hard_sim():
@@ -1235,6 +1343,32 @@ def tracker_mono_hard(K, card):
             alone.feed(tc, img)
             syncs.on_frame(k, tc)
     n_launch = kernel_launches(lambda: [alone.feed(tc, img) for tc, img in frames[107:112]])[0]
+    # the compiled step: the hand kernels each `feed` runs on the device,
+    # by the profiler's kernel names; launches a `feed` graphed and eager;
+    # ms a `feed` of fresh trackers over 20 frames, eager and graphed in turns
+    graphed_prof = launch_profile(lambda: [alone.feed(tc, img) for tc, img in frames[112:117]], steps=5)
+
+    def eager_tracker():
+        tr = make_tracker()
+        tr.step_first, tr.step_track = tr.step_first.eager, tr.step_track.eager
+        return tr
+
+    eager_alone = eager_tracker()
+    for tc, img in frames[100:102]:
+        eager_alone.feed(tc, img)
+    eager_prof = launch_profile(lambda: [eager_alone.feed(tc, img) for tc, img in frames[102:107]], steps=5)
+
+    def ms_a_feed(eager):
+        tr = eager_tracker() if eager else make_tracker()
+        for tc, img in frames[120:122]:  # the first frame, and the first tracking one (captures)
+            tr.feed(tc, img)
+        t0 = time.perf_counter()
+        for tc, img in frames[122:142]:
+            tr.feed(tc, img)
+        return (time.perf_counter() - t0) / 20 * 1e3
+
+    timing = abba(lambda: ms_a_feed(True), lambda: ms_a_feed(False))
+    by_name = graphed_prof["hand_kernels"]
     rec = {"phase": "tracker", "part": "mono, hard frames -> KLTTracker -> VioManager (static init + ZUPT)",
            "frames": len(frames), "initialized_frames": res["n"], "min_tracks_after_frame_3":
            min(n_tracks[3:]), "ate_posyaw_rmse_pos_m": res["rmse_pos"], "ate_posyaw_rmse_ori_deg":
@@ -1246,9 +1380,14 @@ def tracker_mono_hard(K, card):
            "fast9_lk_track_lk_level_launches_per_feed": sorted(set(per_feed[1:])),
            "first_feed_launches": per_feed[0], "launches": launches,
            "host_syncs_per_feed": syncs.per_frame, "sync_sources": syncs.sources,
-           "kernel_launches_per_feed": n_launch / 5,
+           "kernel_launches_per_feed": n_launch / 5, "hand_kernels_per_feed_by_profiler": by_name,
            "kernel_launches_consumed_by": ["VioManager (fused)", "VioManager (staged)"], "card": card}
     log(rec)
+    compiled_step_line("tracker", "KLTTracker feed (a), 752x480 hard frames", card,
+                       [tracker.step_first, tracker.step_track], timing,
+                       {"eager": eager_prof, "graphed": graphed_prof})
+    compiled_step_line("tracker", "VioManager (fused) of the hard run, float64", card, [mgr.full_step],
+                       manager_frame_ms_median=statistics.median(mgr_ms))
     keys = ("uwb", "propagation", "msckf", "slam", "marginalization", "total")
     rec_s = {"phase": "tracker", "part": "mono, hard frames -> the same KLTTracker output -> staged VioManager "
              "(fused_step=False, static init + ZUPT)", "initialized_frames": res_s["n"],
@@ -1263,7 +1402,8 @@ def tracker_mono_hard(K, card):
     log(rec_s)
     if not (res["n"] >= 100 and min(n_tracks[3:]) >= 15 and res["rmse_pos"] < 0.15
             and res["rmse_ori_deg"] < 2.5 and cov_ok_all and len(cov_ok) >= 100 and one_and_one
-            and syncs.per_frame == [1] * 5):
+            and syncs.per_frame == [1] * 5
+            and by_name == {"fast9_kernel": 1, "lk_kernel": 1, "lk_level_kernel": 0}):
         raise RuntimeError("the hard mono tracker run failed its gates")
     if not (res_s["n"] >= 100 and res_s["rmse_pos"] < 0.15 and res_s["rmse_ori_deg"] < 2.5
             and all(staged_cov_ok) and len(staged_cov_ok) >= 100):
@@ -1334,6 +1474,23 @@ def tracker_stereo(K, card):
             and len(cov_ok) == 30 and p_err < 0.5 and per_feed[0] == (1, 1, 0)
             and all(x == (1, 2, 0) for x in per_feed[1:])):
         raise RuntimeError("the stereo tracker run failed its gates")
+
+    frames = [ev for kind, ev in events if kind == "cam"]
+
+    def ms_a_feed(eager):
+        tr = StereoKLTTracker(cams[0].intrinsics, cams[1].intrinsics, cams[0].model, num_features=120, grid=(6, 8))
+        if eager:
+            tr.left.step_first, tr.left.step_track = tr.left.step_first.eager, tr.left.step_track.eager
+        for tc, left, right in frames[:2]:
+            tr.feed(tc, left, right)
+        t0 = time.perf_counter()
+        for tc, left, right in frames[2:14]:
+            tr.feed(tc, left, right)
+        return (time.perf_counter() - t0) / 12 * 1e3
+
+    compiled_step_line("tracker", "StereoKLTTracker feed (b) (its left tracker graphed, the stereo match eager)",
+                       card, [tracker.left.step_first, tracker.left.step_track],
+                       abba(lambda: ms_a_feed(True), lambda: ms_a_feed(False)))
     return launches
 
 
@@ -1592,9 +1749,9 @@ def slice_phase(K, dev, render_out, card):
     # ---- the slice ---------------------------------------------------
     steps, step, make_carry, st0, frames, windows = slice_steps(dev, sim, imgs, stamps, imu)
 
-    def run_slice():
+    def run_slice(eager=False):
         infos = []
-        for st, info in steps():
+        for st, info in steps(eager):
             infos.append(info)
         torch.cuda.synchronize()
         return st, infos
@@ -1628,11 +1785,13 @@ def slice_phase(K, dev, render_out, card):
     torch.cuda.set_sync_debug_mode(0)
     sync_ops = sorted({str(w.message).split("\n")[0][:120] for w in caught})
 
-    reps = []
-    for _ in range(2):
+    def ms_per_frame(eager):
         t0 = time.perf_counter()
-        run_slice()
-        reps.append((time.perf_counter() - t0) / n_steps * 1e3)
+        run_slice(eager)
+        return (time.perf_counter() - t0) / n_steps * 1e3
+
+    timing = abba(lambda: ms_per_frame(True), lambda: ms_per_frame(False))
+    reps = timing["graphed_ms"]
     # the same kernels' device time by name under the profiler, 5 steps
     def five_steps():
         frames_it = steps()
@@ -1640,12 +1799,20 @@ def slice_phase(K, dev, render_out, card):
             next(frames_it)
 
     profiled = profiled_kernel_ms(five_steps)
+    by_name = launch_profile(five_steps, steps=5)["hand_kernels"]
     slice_rec.update({"per_frame_ms_median": statistics.median(reps), "per_frame_ms_reps": reps,
                       "host_syncs_in_one_step": len(caught), "sync_sources": sync_ops,
-                      "profiled_kernels": profiled, "card": card})
+                      "profiled_kernels": profiled, "hand_kernels_per_step_by_profiler": by_name, "card": card})
     log(slice_rec)
     if caught:
         raise RuntimeError(f"{len(caught)} host syncs inside one slice step: {sync_ops}")
+    if by_name != {"fast9_kernel": 1, "lk_kernel": 1, "lk_level_kernel": 0}:
+        raise RuntimeError(f"the profiler saw {by_name} hand kernels a slice step")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    carry = make_carry(frames[0])
+    one = lambda fn: lambda: fn(st0, carry, frames[1], *windows[0][:3], windows[0][3], generator=gen)
+    compiled_step_line("slice", "fused image->pose step", card, [step.graphed], timing,
+                       {"eager": launch_profile(one(step.eager)), "graphed": launch_profile(one(step))})
     return launches, profiled
 
 
@@ -1911,6 +2078,35 @@ def pool_phase(jobs, card):
         raise RuntimeError(f"failed: {failed}")
 
 
+def estimator_compiled_step(card, name="uwb"):
+    """The compiled step of the estimator scenarios: scenario `name` in
+    this process, its managers' fused step graphed and eager in turns
+    (the eager one by `make_packed_full_step(cfg).eager`), under the
+    scenario's gates each time."""
+    import torch_e2e_scenarios as scenarios
+
+    from uvio_tpu_torch import manager as M
+
+    graphed_step, recs = M.make_packed_full_step, []
+
+    def run(eager):
+        M.make_packed_full_step = (lambda cfg: graphed_step(cfg).eager) if eager else graphed_step
+        try:
+            recs.append(scenarios.run(name, "cuda:0"))
+        finally:
+            M.make_packed_full_step = graphed_step
+        return recs[-1]["ms_per_frame"]
+
+    timing = abba(lambda: run(True), lambda: run(False))
+    g = recs[1]
+    log({"phase": "estimator", "part": f"scenario {name}, the managers' ms a frame (median)", "layer": "compiled step",
+         "eager_ms_per_frame": timing["eager_ms"], "graphed_ms_per_frame": timing["graphed_ms"],
+         "eager_ms_median": statistics.median(timing["eager_ms"]),
+         "graphed_ms_median": statistics.median(timing["graphed_ms"]), "graphs": g["graphs"],
+         "warmup_and_capture_ms": g["graph_capture_ms"], "pool_mb": g["graph_pool_mb"],
+         "ate_pos_m": [r["ate_pos_m"] for r in recs], "card": card})
+
+
 def backend_map(card):
     """The live map backend on the card (module docstring, phase 13 (b)):
     the scenario of tests/test_map_backend.py:45 through a staged float64
@@ -2162,9 +2358,11 @@ def batch_fixture(dev, card):
         raise RuntimeError("the batched float32 step failed its gates")
 
 
-def batch_sweep(dev, card, batches=(1, 8, 32), warm=5, timed=20):
+def batch_sweep(dev, card, batches=(1, 8, 32), timed=20):
     """(c): ms, sequence-frames/s, launches, host syncs and peak memory of
-    the batched float32 step at each B; the operations vmap loops over."""
+    the batched float32 step at each B, after a warm pass over the timed
+    frames (it captures every graph they need); the operations vmap loops
+    over."""
     import warnings
 
     import torch
@@ -2182,34 +2380,43 @@ def batch_sweep(dev, card, batches=(1, 8, 32), warm=5, timed=20):
         frames.append((bundle_from_numpy(frame[0], dev, torch.float32), plan_frame(frame[0], t)))
         t = float(frame[0]["stamp_time"])
 
-    def run_single(n):
+    def run_single(n, fn=single):
         st = s0
         for fb, plan in frames[:n]:
-            st, _ = single(st, fb, plan)
+            st, _ = fn(st, fb, plan)
 
-    run_single(warm)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    def ms_per_step(run, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
     run_single(timed)
-    torch.cuda.synchronize()
-    single_ms = (time.perf_counter() - t0) / timed * 1e3
+    single_ms = ms_per_step(run_single, timed)
     log({"phase": "batch", "part": "sweep", "B": "single step", "ms_per_step": single_ms,
          "launches_per_step": kernel_launches(lambda: single(s0, *frames[1]))[0], "card": card})
+    eager_frames = 10  # the eager step in turns with the graphed one
+    compiled_step_line("batch", "single full step, float32, sequence 0 of the batched fixture", card, [single],
+                       abba(lambda: ms_per_step(lambda n: run_single(n, single.eager), eager_frames),
+                            lambda: ms_per_step(run_single, eager_frames)),
+                       {"eager": launch_profile(lambda: single.eager(s0, *frames[1])),
+                        "graphed": launch_profile(lambda: single(s0, *frames[1]))})
 
     fallbacks, rows = set(), []
     for B in batches:
         fx, step, state0, staged = batch_inputs(dev, torch.float32, B)
 
-        def run(frames):
+        def run(frames, fn=step):
             st = state0
             for fb, plan in frames:
-                st, _ = step(st, fb, plan)
+                st, _ = fn(st, fb, plan)
             return st
 
         torch._C._functorch._set_vmap_fallback_warning_enabled(True)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            run(staged[:warm])
+            run(staged[:timed])
         torch._C._functorch._set_vmap_fallback_warning_enabled(False)
         fallbacks |= {str(w.message).split(" for ")[-1].split(".")[0] for w in caught
                       if "batching rule" in str(w.message)}
@@ -2227,6 +2434,12 @@ def batch_sweep(dev, card, batches=(1, 8, 32), warm=5, timed=20):
                      "launches_per_step": launches, "device_kernels_per_step": kernels,
                      "host_syncs_per_step": syncs, "sync_sources": sources, "peak_memory_bytes": peak})
         log({"phase": "batch", "part": "sweep", **rows[-1], "card": card})
+        compiled_step_line("batch", f"batched full step, float32, B={B}", card, [step],
+                           abba(lambda: ms_per_step(lambda n: run(staged[:n], step.eager), eager_frames),
+                                lambda: ms_per_step(lambda n: run(staged[:n]), eager_frames)),
+                           {"eager": launch_profile(lambda: step.eager(state0, fb, plan)),
+                            "graphed": launch_profile(lambda: step(state0, fb, plan))},
+                           B=B, distinct_union_plans=len({p.union for _, p in staged[:timed]}))
     log({"phase": "batch", "part": "vmap_fallbacks", "ops": sorted(fallbacks), "card": card})
     if any(r["host_syncs_per_step"] for r in rows):
         raise RuntimeError("a batched step waits for the host")
@@ -2349,6 +2562,8 @@ def main(argv=None):
 
         pool_phase([("stream", n) for n in STREAMS if "streams" in phases]
                    + [("scenario", n) for n in scenarios.SCENARIOS if "estimator" in phases], card)
+        if "estimator" in phases:
+            estimator_compiled_step(card)
         done("+".join(p for p in ("streams", "estimator") if p in phases))
     if "backend" in phases:
         backend_phase(card)

@@ -111,6 +111,8 @@ def drive(sim, mgr, done, t_shift=0.0, uwb=False, cov=False):
     out = {k: np.asarray(v) for k, v in rec.items()}
     n_sync = SYNC_FRAMES[1] - SYNC_FRAMES[0]
     out["syncs_per_frame"] = syncs.n / n_sync if counted and len(rec["t"]) >= SYNC_FRAMES[1] else None
+    # the fused step's CUDA graphs (`graphs.graphed`; none on the CPU)
+    out["graphs"] = getattr(mgr.__dict__.get("full_step"), "stats", dict)()
     return out
 
 
@@ -125,10 +127,16 @@ def ate_none(r):
 
 
 def summary(*runs, **extra):
-    """The record of a scenario of one or more drives (syncs: the last's)."""
+    """The record of a scenario of one or more drives (syncs: the last's;
+    the fused steps' CUDA graphs, their warm-up and capture ms and pool
+    memory summed over the drives)."""
+    graphs = [r["graphs"] for r in runs if r["graphs"]]
     return {"frames": sum(len(r["t"]) for r in runs),
             "ms_per_frame": statistics.median(np.concatenate([r["frame_ms"] for r in runs])),
-            "syncs_per_frame": runs[-1]["syncs_per_frame"], **extra}
+            "syncs_per_frame": runs[-1]["syncs_per_frame"],
+            "graphs": sum(g["graphs"] for g in graphs),
+            "graph_capture_ms": sum(g["warmup_ms"] + g["capture_ms"] for g in graphs),
+            "graph_pool_mb": sum(g["pool_bytes"] for g in graphs) / 2**20, **extra}
 
 
 # ---- tests/test_sim_e2e.py -------------------------------------------------

@@ -15,8 +15,9 @@ Conventions:
     `pipeline.make_batched_step`, `torch.func.vmap` of the single-sequence
     step), `lax.fori_loop` a Python loop with a fixed count;
   * inside the per-frame step nothing synchronises with the host (no
-    `.item()`, no `bool(tensor)`), so the step can later be captured in
-    a CUDA graph.
+    `.item()`, no `bool(tensor)`), so on the card each step is captured
+    once per static key as a CUDA graph and replayed (`graphs.py`, the
+    counterpart of `jax.jit`).
 
 The two Pallas kernels of `uvio_tpu/frontend/pallas_kernels.py` are
 hand-written CUDA kernels for Hopper (`csrc/`), built at first use by

@@ -101,6 +101,16 @@ def cholesky_or_nan(S: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
 
 
+def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with (L L^T) x = b for lower Cholesky factors L (batched), as two
+    triangular solves (cuBLAS `trsm` on the card; JAX's `cho_solve` is
+    the same pair). On the card `torch.cholesky_solve` of a batch takes
+    MAGMA's `potrs_batched`, which allocates device memory from the host
+    and so cannot be captured in a CUDA graph. A NaN factor gives NaN."""
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+
+
 def ekf_update(
     state: FilterState,
     layout: StateLayout,
@@ -120,7 +130,7 @@ def ekf_update(
     PHt = state.cov @ m.T  # (D, m)
     S = m @ PHt + torch.diag(rd)
     S = 0.5 * (S + S.T)
-    K = torch.cholesky_solve(PHt.T, cholesky_or_nan(S)).T  # (D, m)
+    K = cho_solve(cholesky_or_nan(S), PHt.T).T  # (D, m)
     dx = K @ r
     cov = state.cov - K @ PHt.T
     cov = 0.5 * (cov + cov.T)

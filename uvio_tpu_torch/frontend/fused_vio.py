@@ -14,6 +14,12 @@ gather. Triage follows the reference (`VioManager.cpp:366-500`): lost
 tracks and tracks observed at the clone about to be marginalized are
 update candidates; the `max_msckf_in_update` longest are used.
 
+On the card the step is captured once as a CUDA graph and replayed
+every frame (`graphs.graphed`), as `uvio_tpu`'s tests run its step under
+one `jax.jit`; both hand kernels launch inside the graph. RANSAC's
+Gumbel noise is drawn before the replay, from the caller's generator,
+and enters the graph as an input: the draws are those of the eager step.
+
 Nothing in the step waits for the host. Where `uvio_tpu` branches with
 `lax.cond`, the port computes the marginalized state and selects it
 with `torch.where`; `mode="drop"` scatters write into an appended
@@ -33,12 +39,15 @@ from ..cam import models as cam_models
 from ..device import resolve_device
 from ..filter.ekf import marginalize_clone
 from ..filter.propagator import NoiseManager, propagate_and_clone
+from ..graphs import graphed
 from ..types.layout import StateLayout
 from ..update.msckf import msckf_update
 from .klt import (
+    RANSAC_HYPOTHESES,
     build_pyramid,
     fast_score,
     grid_detect,
+    gumbel_noise,
     hist_equalize,
     lk_track,
     ransac_fundamental,
@@ -108,6 +117,10 @@ def make_fused_vio_step(
     make_carry(img0) -> carry, the device-resident track state
         (pyramid list, uv, active, hist_uv, hist_mask).
 
+    On CUDA inputs `step_fn` replays a CUDA graph captured at its first
+    call (`graphs.graphed`); the noise is drawn before the replay, so the
+    draws equal the eager step's. `step_fn.eager` is the eager step, with
+    the same signature; `step_fn.graphed` the `graphs.Graphed` callable.
     The step is its two halves, also reachable as `step_fn.track` and
     `step_fn.update`:
       track(carry, img, gumbel, generator) -> (pyr, img_eq, uv_new, tracked)
@@ -228,10 +241,19 @@ def make_fused_vio_step(
         }
         return state, carry, info
 
-    def step(state, carry, img, imu_t, imu_w, imu_a, stamp_time, gumbel=None, generator=None):
+    def eager(state, carry, img, imu_t, imu_w, imu_a, stamp_time, gumbel=None, generator=None):
         pyr, img_eq, uv_new, tracked = track(carry, img, gumbel, generator)
         return update(state, carry, pyr, img_eq, uv_new, tracked, imu_t, imu_w, imu_a, stamp_time)
 
+    replay = graphed(eager, "fused image->pose step")
+
+    def step(state, carry, img, imu_t, imu_w, imu_a, stamp_time, gumbel=None, generator=None):
+        if gumbel is None:
+            gumbel = gumbel_noise((RANSAC_HYPOTHESES, 8, N), generator, img.device)
+        return replay(state, carry, img, imu_t, imu_w, imu_a, stamp_time, gumbel)
+
+    step.eager = eager
+    step.graphed = replay
     step.track = track
     step.update = update
 

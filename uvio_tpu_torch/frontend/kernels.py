@@ -14,7 +14,8 @@ Counterpart of `uvio_tpu/frontend/pallas_kernels.py`:
 A wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises. Each kernel launch adds
 one to `launch_counts[name]`, so a run can show that its main path went
-through the kernels.
+through the kernels; inside a CUDA graph (`graphs.graphed`) the launches
+recorded at the capture are added at each replay instead.
 """
 
 from __future__ import annotations
@@ -85,10 +86,10 @@ def fast_score_ref(img: torch.Tensor, thresh: float = 20.0) -> torch.Tensor:
     for s in range(16):  # sequential, as the kernel accumulates
         mag = mag + torch.where(brighter[s] | darker[s], d[s].abs() - thresh, torch.zeros_like(img))
     score = torch.where(arc9(brighter) | arc9(darker), mag, torch.zeros_like(mag))
-    score[:3, :] = 0.0
-    score[-3:, :] = 0.0
-    score[:, :3] = 0.0
-    score[:, -3:] = 0.0
+    score[:3, :].zero_()
+    score[-3:, :].zero_()
+    score[:, :3].zero_()
+    score[:, -3:].zero_()
     return score
 
 

@@ -16,8 +16,8 @@ import torch
 from .kernels import fast_score, lk_level, lk_track
 
 __all__ = [
-    "build_pyramid", "fast_score", "grid_detect", "hist_equalize", "lk_level",
-    "lk_track", "ransac_fundamental",
+    "RANSAC_HYPOTHESES", "build_pyramid", "fast_score", "grid_detect", "gumbel_noise",
+    "hist_equalize", "lk_level", "lk_track", "ransac_fundamental",
 ]
 
 
@@ -176,7 +176,10 @@ def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
 
-def ransac_fundamental(uvn1, uvn2, valid, thresh, n_hyp=64, gumbel=None, generator=None):
+RANSAC_HYPOTHESES = 64  # `ransac_fundamental`'s default hypothesis count
+
+
+def ransac_fundamental(uvn1, uvn2, valid, thresh, n_hyp=RANSAC_HYPOTHESES, gumbel=None, generator=None):
     """Masked batched RANSAC in normalized coordinates; returns the
     inlier mask (N,) of the best of `n_hyp` 8-point hypotheses.
 

@@ -27,9 +27,21 @@ What differs from `uvio_tpu`, with the same results:
     constructor unless one is given), or takes the Gumbel noise itself
     (`feed(..., gumbel=)`).
 
+The device part of `feed` (preprocessing, LK, undistortion, RANSAC,
+FAST, grid detection and the packing for the read-back) is
+`_device_first` on a tracker's first frame and `_device_track` after,
+`uvio_tpu`'s jitted `_device_step`; on the card each is captured once as
+a CUDA graph and replayed (`graphs.graphed`, the port's `jax.jit` of
+`_build_step`). `_fit_levels` fixes the pyramid before either is
+captured. The host keeps the ids (`_spawn`, `_emit`), uploads the frame
+and the track table, draws RANSAC's noise from the generator (an input
+of the graph, so the draws are the eager path's) and, with
+`histeq="CLAHE"`, equalizes on the host through cv2 before the upload.
+
 On CUDA tensors one `feed` launches the `fast9` kernel once and the
-`lk_track` kernel once (`kernels.launch_counts`); on the CPU the
-wrappers take their plain versions.
+`lk_track` kernel once, inside the graph (`kernels.launch_counts`
+counts them at each replay); on the CPU the wrappers take their plain
+versions.
 """
 
 from __future__ import annotations
@@ -41,10 +53,13 @@ import torch
 
 from ..cam import models as cam_models
 from ..device import resolve_device
+from ..graphs import graphed
 from .klt import (
+    RANSAC_HYPOTHESES,
     build_pyramid,
     fast_score,
     grid_detect,
+    gumbel_noise,
     hist_equalize,
     lk_track,
     ransac_fundamental,
@@ -117,6 +132,9 @@ class KLTTracker:
         fx = float(intrinsics[0])
         fy = float(intrinsics[1])
         self.ransac_thresh = 2.0 / max(fx, fy)  # TrackKLT.cpp:873 convention
+        # the device part of `feed`, graphed (`.eager` is the plain one)
+        self.step_first = graphed(self._device_first, "KLTTracker first frame")
+        self.step_track = graphed(self._device_track, "KLTTracker tracking")
 
     def _fit_levels(self, img_shape):
         # coarsest pyramid level must still contain the LK window
@@ -127,17 +145,26 @@ class KLTTracker:
         self.levels = levels
 
     # -- device side ----------------------------------------------------
-    def _preprocess(self, img: np.ndarray):
-        """(image, pyramid) on the device of a raw host frame, equalized
-        as `histeq` says."""
+    def _upload(self, img: np.ndarray) -> torch.Tensor:
+        """A raw host frame on the device, equalized on the host first
+        when `histeq` is CLAHE."""
         if self.histeq == "CLAHE":
             from .aruco import histogram_equalize
 
             img = histogram_equalize(np.asarray(img), "CLAHE")
-        img_d = to_device(img, self.device)
+        return to_device(img, self.device)
+
+    def _prepare(self, img_d: torch.Tensor):
+        """(image, pyramid) of an uploaded frame, equalized on the device
+        when `histeq` is HISTOGRAM."""
         if self.histeq == "HISTOGRAM":
             img_d = hist_equalize(img_d)
         return img_d, build_pyramid(img_d, self.levels)
+
+    def _preprocess(self, img: np.ndarray):
+        """(image, pyramid) on the device of a raw host frame, equalized
+        as `histeq` says."""
+        return self._prepare(self._upload(img))
 
     def _detect(self, img_d, uv, occupied):
         score = fast_score(img_d, self.fast_thresh)
@@ -145,10 +172,12 @@ class KLTTracker:
             score, self.grid[0], self.grid[1], uv, occupied, per_cell=self.per_cell
         )
 
-    def _track(self, pyr, uv, active, gumbel=None):
-        """LK from the previous pyramid and RANSAC in normalized
-        coordinates: (uv_new, ok, tracked)."""
-        uv_new, ok = lk_track(self.prev_pyr, pyr, uv, active, half=self.half)
+    def _track(self, pyr, uv, active, gumbel=None, prev_pyr=None):
+        """LK from the previous pyramid (`prev_pyr`, by default the
+        tracker's) and RANSAC in normalized coordinates: (uv_new, ok,
+        tracked)."""
+        prev_pyr = self.prev_pyr if prev_pyr is None else prev_pyr
+        uv_new, ok = lk_track(prev_pyr, pyr, uv, active, half=self.half)
         # both point sets through the (iterative) undistortion in one call
         uvn = cam_models.undistort(self.intrinsics, self.cam_model, torch.cat([uv, uv_new]))
         n = uv.shape[0]
@@ -157,10 +186,38 @@ class KLTTracker:
         )
         return uv_new, ok, active & ok & inl
 
+    @staticmethod
+    def _columns(tab):
+        """(uv (N,2), active (N,)) of an uploaded track table (N,3)."""
+        return tab[:, :2].contiguous(), tab[:, 2] != 0
+
+    def _upload_table(self) -> torch.Tensor:
+        return to_device(np.concatenate([self.uv, self.active[:, None]], axis=1), self.device)
+
     def _table(self):
         """The host's track table on the device: (uv (N,2), active (N,))."""
-        tab = to_device(np.concatenate([self.uv, self.active[:, None]], axis=1), self.device)
-        return tab[:, :2].contiguous(), tab[:, 2] != 0
+        return self._columns(self._upload_table())
+
+    def _device_first(self, img_d, tab):
+        """The device part of a first `feed` (same preprocessing as later
+        frames, then detection only): (pyramid, detections packed (G,3))."""
+        img_e, pyr = self._prepare(img_d)
+        uv, active = self._columns(tab)
+        det_uv, det_ok = self._detect(img_e, uv, active)
+        return pyr, torch.cat([det_uv, det_ok[:, None]], dim=1).to(torch.float32)
+
+    def _device_track(self, prev_pyr, img_d, tab, gumbel):
+        """The device part of a later `feed`: LK from `prev_pyr`, RANSAC
+        with the noise `gumbel`, then detection in the cells that failed
+        tracks left free: (pyramid, [uv_new | tracked] (N,3) on top of the
+        detections (G,3), packed)."""
+        img_e, pyr = self._prepare(img_d)
+        uv, active = self._columns(tab)
+        uv_new, _, tracked = self._track(pyr, uv, active, gumbel, prev_pyr=prev_pyr)
+        det_uv, det_ok = self._detect(img_e, uv_new, tracked)
+        packed = torch.cat([torch.cat([uv_new, tracked[:, None]], dim=1),
+                            torch.cat([det_uv, det_ok[:, None]], dim=1)])
+        return pyr, packed.to(torch.float32)
 
     # -- host side ------------------------------------------------------
     def feed(self, t: float, img: np.ndarray, gumbel: torch.Tensor = None):
@@ -169,27 +226,22 @@ class KLTTracker:
         float32 Gumbel noise, replaces the generator's draw in RANSAC."""
         if self.prev_img is None:
             self._fit_levels(img.shape)
-        img_d, pyr = self._preprocess(img)
-        uv, active = self._table()
+        img_d, tab = self._upload(img), self._upload_table()
         N = self.cap
         if self.prev_img is None:
-            # initial detection only (same preprocessing as later frames)
-            det_uv, det_ok = self._detect(img_d, uv, active)
-            host = fetch(torch.cat([det_uv, det_ok[:, None]], dim=1))
+            pyr, packed = self.step_first(img_d, tab)
+            host = packed.cpu().numpy()
         else:
-            uv_new, _, tracked = self._track(pyr, uv, active, gumbel)
-            # keep failed tracks' slots free; detect new corners in free cells
-            det_uv, det_ok = self._detect(img_d, uv_new, tracked)
-            host = fetch(
-                torch.cat([uv_new, tracked[:, None]], dim=1),
-                torch.cat([det_uv, det_ok[:, None]], dim=1),
-            )
+            if gumbel is None:
+                gumbel = gumbel_noise((RANSAC_HYPOTHESES, 8, N), self.generator, self.device)
+            pyr, packed = self.step_track(self.prev_pyr, img_d, tab, gumbel)
+            host = packed.cpu().numpy()
             self.uv = host[:N, :2].copy()
             self.active = host[:N, 2] != 0
             self.ids[~self.active] = -1
             host = host[N:]
         self._spawn(host[:, :2], host[:, 2] != 0)
-        self.prev_img, self.prev_pyr = img_d, pyr
+        self.prev_img, self.prev_pyr = pyr[0], pyr
         return self._emit()
 
     def stereo_match(self, img_left, img_right, uv_left, valid, pyr_left=None):

@@ -10,10 +10,13 @@ frontend), and runs one frame of `do_feature_propagate_update`
     -> MSCKF update -> SLAM update/init -> marginalize oldest clone
 
 Two paths run it. The fused path (`fused_step=True`, the default) is one
-call of `pipeline.full_filter_step`: host work per frame is O(features)
-dict bookkeeping and the padded numpy `FrameBundle`; the bundle goes to
-the device in one transfer (`pipeline.bundle_from_numpy`) and the host
-reads the frame's decisions back in one (`_fetch`). With `async_dispatch`
+call of `pipeline.full_filter_step`, on the card one replay of a CUDA
+graph captured once per `FramePlan` (`pipeline.make_packed_full_step`):
+host work per frame is O(features) dict bookkeeping and the padded numpy
+`FrameBundle`; the bundle goes to the device in one transfer, packed into
+one pinned buffer that is copied straight into the graph's static input
+(`pipeline.pack_bundle`), and the host reads the frame's decisions back
+in one (`_fetch`). With `async_dispatch`
 and nothing for the host to decide, a frame reads nothing back at all.
 The staged path (`fused_step=False`) calls each stage on its own
 (`_stage_*`: plain functions over the state) and reads each stage's
@@ -52,7 +55,7 @@ from .frontend.fused_vio import check_full_precision
 from .init.dynamic_init import DynamicInitOptions, result_to_state_first, solve_dynamic_init
 from .init.static_init import StaticInitOptions, try_static_init
 from .math import quat_to_rot
-from .pipeline import FullStepConfig, bundle_from_numpy, make_full_step, plan_frame
+from .pipeline import FullStepConfig, make_packed_full_step, pack_bundle, plan_frame
 from .types.layout import StateLayout
 from .types.state import FilterState, init_state
 from .update.msckf import clone_camera_poses, msckf_update
@@ -320,13 +323,14 @@ class VioManager:
             zupt_explicit=cfg.zupt_explicit,
             **self._full_step_extras(),
         )
-        step = make_full_step(self._full_cfg)
+        # the graphed step (`graphs.graphed`): `.eager` is the plain one
+        self.full_step = make_packed_full_step(self._full_cfg)
 
         def full(state, fields):
             """One frame: `fields` is the numpy bundle keyed by
             `FrameBundle` field; the plan reads the host's state time."""
             plan = plan_frame(fields, self._time_host)
-            return step(state, bundle_from_numpy(fields, self.device, self.dtype), plan)
+            return self.full_step(state, *pack_bundle(fields, self.device), plan)
 
         # the seam that `eval.capture` hooks to record the bundles
         self._jit_full = full

@@ -51,11 +51,20 @@ and all-gather the results: `uvio_tpu`'s sharding of the batch over mesh
 axis "dp".
 `HostPipeline` stages chunk k+1 on the device from a thread while the
 caller runs chunk k.
+
+On the card every factory's step is `uvio_tpu`'s `jax.jit` counterpart:
+`graphs.graphed`, one CUDA graph captured per static key (the plan's
+bools, the batch's union plan, the input shapes and dtypes) and replayed
+after; `step.eager` is the plain step, and `full_filter_step` and
+`filter_step` stay the plain functions. A batched step given a process
+group runs eagerly (a gloo collective cannot be captured).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from functools import partial
 from typing import Any, NamedTuple, Tuple
 
 import numpy as np
@@ -65,6 +74,7 @@ from .device import resolve_device
 from .filter.ekf import marginalize_clone
 from .filter.propagator import INTEGRATIONS, NoiseManager, propagate_and_clone, propagate_mean_cov
 from .frontend.fused_vio import check_full_precision
+from .graphs import graphed
 from .types.layout import StateLayout
 from .types.state import FIELDS, FilterState, oldest_clone_slot, where_state
 from .update.msckf import msckf_update
@@ -99,9 +109,11 @@ def filter_step(state, imu_t, imu_w, imu_a, obs_uv, obs_mask, *, cfg: StepConfig
 
 def make_step(cfg: StepConfig):
     """The single-sequence step, `step(state, imu_t, imu_w, imu_a, obs_uv,
-    obs_mask)`."""
+    obs_mask)`: `filter_step` captured as a CUDA graph per input shape and
+    replayed (`graphs.graphed`, the port's `jax.jit`); `step.eager` is
+    `filter_step` itself."""
     check_full_precision()
-    return lambda *args: filter_step(*args, cfg=cfg)
+    return graphed(partial(filter_step, cfg=cfg), "filter_step")
 
 
 def _over_batch(fn, group, *args, **kwargs):
@@ -147,6 +159,10 @@ def make_batched_step(cfg: StepConfig, group=None):
     it. Its in-place block writes stay batched under vmap because every
     buffer they write into is allocated from a batched tensor
     (`new_zeros`), and the step makes no data-dependent host decision.
+
+    Without a group the step is captured as a CUDA graph per input shape
+    and replayed (`graphs.graphed`; `.eager` is the vmap itself). With a
+    group it runs eagerly: a gloo collective cannot be captured.
     """
     check_full_precision()
 
@@ -158,7 +174,7 @@ def make_batched_step(cfg: StepConfig, group=None):
         fields, info = _over_batch(one, group, tuple(getattr(state, n) for n in FIELDS), *args)
         return FilterState(**dict(zip(FIELDS, fields))), info
 
-    return step
+    return step if group is not None else graphed(step, "batched filter_step")
 
 
 class HostPipeline:
@@ -281,16 +297,31 @@ def _getter(fields):
     return fields.__getitem__ if isinstance(fields, dict) else lambda n: getattr(fields, n)
 
 
+def _host_flat(arrays, device) -> torch.Tensor:
+    """The numpy `arrays` packed into one float64 host tensor (which holds
+    every mask and index exactly), in pinned memory when `device` is a
+    CUDA device, so that its copy to the card need not wait for it."""
+    flat = torch.empty(sum(a.size for a in arrays), dtype=torch.float64,
+                       pin_memory=device.type == "cuda")
+    np.concatenate([a.ravel() for a in arrays], out=flat.numpy(), casting="unsafe")
+    return flat
+
+
+def _split(flat, shapes):
+    """Views of `flat` with the given shapes, in order."""
+    sizes = [math.prod(s) for s in shapes]
+    return [x.view(s) for x, s in zip(torch.split(flat, sizes), shapes)]
+
+
 def _upload(arrays, device):
     """The numpy `arrays` on `device` as float64 tensors of their shapes,
-    in one copy: packed into one float64 buffer (which holds every mask
-    and index exactly), and on a CUDA device copied from pinned memory
-    without waiting for the device, so a caller that reads nothing back
-    keeps running ahead of it."""
-    flat = torch.from_numpy(np.concatenate([a.ravel().astype(np.float64) for a in arrays]))
+    in one copy (`_host_flat`), which on a CUDA device does not wait for
+    the device, so a caller that reads nothing back keeps running ahead
+    of it."""
+    flat = _host_flat(arrays, device)
     if device.type == "cuda":
-        flat = flat.pin_memory().to(device, non_blocking=True)
-    return [x.reshape(a.shape) for x, a in zip(torch.split(flat, [a.size for a in arrays]), arrays)]
+        flat = flat.to(device, non_blocking=True)
+    return _split(flat, [a.shape for a in arrays])
 
 
 def _bundle_leaves(parts, dtype) -> FrameBundle:
@@ -314,6 +345,17 @@ def bundle_from_numpy(fields, device=None, dtype=torch.float64) -> FrameBundle:
     get = _getter(fields)
     leaves = [np.asarray(get(n)) for n in FrameBundle._fields]
     return _bundle_leaves(_upload(leaves, resolve_device(device)), dtype)
+
+
+def pack_bundle(fields, device=None):
+    """(flat, shapes): the numpy bundle `fields` (as `bundle_from_numpy`
+    takes it) packed into one float64 host tensor, pinned for a CUDA
+    `device`, and its fields' shapes. `make_packed_full_step`'s step
+    takes both, and the flat copy goes to the card straight into the
+    graph's static input: the frame's one upload."""
+    get = _getter(fields)
+    leaves = [np.asarray(get(n)) for n in FrameBundle._fields]
+    return _host_flat(leaves, resolve_device(device)), tuple(a.shape for a in leaves)
 
 
 def stack_bundles(bundles, plan, device=None, dtype=torch.float64):
@@ -606,10 +648,31 @@ def _check_full_step(cfg: FullStepConfig):
 
 
 def make_full_step(cfg: FullStepConfig):
-    """The full step, `step(state, fb, plan) -> (state, infos)`. Raises
-    unless float32 matmuls run in full precision (README "Numerics")."""
+    """The full step, `step(state, fb, plan) -> (state, infos)`:
+    `full_filter_step` captured as a CUDA graph once per `FramePlan` (and
+    input dtype) and replayed after, one graph launch a frame
+    (`graphs.graphed`, the port's `jax.jit`); `step.eager` is the plain
+    step. Raises unless float32 matmuls run in full precision (README
+    "Numerics")."""
     _check_full_step(cfg)
-    return lambda state, fb, plan: full_filter_step(state, fb, plan, cfg=cfg)
+    return graphed(partial(full_filter_step, cfg=cfg), "full_filter_step")
+
+
+def _packed_full_step(state, flat, shapes, plan, *, cfg: FullStepConfig):
+    # a no-op inside the graph, whose static input is on the card already
+    flat = flat.to(state.cov.device, non_blocking=True)
+    fb = _bundle_leaves(_split(flat, shapes), state.cov.dtype)
+    return full_filter_step(state, fb, plan, cfg=cfg)
+
+
+def make_packed_full_step(cfg: FullStepConfig):
+    """The full step on a bundle packed by `pack_bundle`, `step(state,
+    flat, shapes, plan) -> (state, infos)`, graphed as `make_full_step`:
+    the flat host tensor is copied straight into the graph's static input
+    and unpacked inside the graph. Its float fields take the state's
+    dtype. The managers' fused frame."""
+    _check_full_step(cfg)
+    return graphed(partial(_packed_full_step, cfg=cfg), "full_filter_step (packed bundle)")
 
 
 def make_batched_full_step(cfg: FullStepConfig, group=None):
@@ -624,8 +687,11 @@ def make_batched_full_step(cfg: FullStepConfig, group=None):
 
     One `torch.func.vmap` of the single-sequence code, nothing else: an
     operation that vmap cannot batch raises, and no sequence is ever
-    stepped on its own. Raises unless float32 matmuls run in full
-    precision, as `make_full_step`."""
+    stepped on its own. Without a group it is captured as a CUDA graph
+    once per union plan (and input shape) and replayed
+    (`graphs.graphed`; `.eager` is the vmap itself); with a group it runs
+    eagerly, since a gloo collective cannot be captured. Raises unless
+    float32 matmuls run in full precision, as `make_full_step`."""
     _check_full_step(cfg)
 
     def one(fields, fb, bits, union):
@@ -638,4 +704,4 @@ def make_batched_full_step(cfg: FullStepConfig, group=None):
                                     tuple(getattr(plan, n) for n in _PLAN_BITS), union=plan.union)
         return FilterState(**dict(zip(FIELDS, fields))), infos
 
-    return step
+    return step if group is not None else graphed(step, "batched full_filter_step")

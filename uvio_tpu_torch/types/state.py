@@ -20,6 +20,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils._pytree import register_pytree_node
 
 from ..device import resolve_device
 from .layout import IMU_MODEL_KALIBR, StateLayout
@@ -81,6 +82,15 @@ _F64_FIELDS = ("time", "clones_t")
 _BOOL_FIELDS = ("clones_valid", "slam_valid", "anchors_valid")
 _INT_FIELDS = ("clone_head", "slam_id", "slam_anchor_slot", "slam_anchor_cam")
 FIELDS = tuple(f.name for f in dataclasses.fields(FilterState))
+
+# a pytree node, so a step that takes and returns states can be captured
+# and replayed as a CUDA graph (`graphs.graphed`) like any tuple of tensors
+register_pytree_node(
+    FilterState,
+    lambda s: ([getattr(s, n) for n in FIELDS], None),
+    lambda leaves, _: FilterState(*leaves),
+    serialized_type_name="uvio_tpu_torch.types.state.FilterState",
+)
 
 
 def _field_dtype(name: str, dtype: torch.dtype) -> torch.dtype:

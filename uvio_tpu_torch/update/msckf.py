@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..cam import models as cam_models
-from ..filter.ekf import cholesky_or_nan, ekf_update
+from ..filter.ekf import cho_solve, cholesky_or_nan, ekf_update
 from ..math import quat_to_rot, skew
 from ..math.chi2 import chi2_95
 from ..types.layout import StateLayout
@@ -156,7 +156,7 @@ def chi2_gate(Hx_proj, res_proj, cov, nobs_rows, sigma_pix, chi2_mult=1.0):
     Returns (keep (F,), chi2 statistic (F,))."""
     eye = torch.eye(Hx_proj.shape[1], dtype=Hx_proj.dtype, device=Hx_proj.device)
     S = Hx_proj @ cov @ Hx_proj.transpose(-1, -2) + sigma_pix**2 * eye
-    sol = torch.cholesky_solve(res_proj[..., None], cholesky_or_nan(S))[..., 0]
+    sol = cho_solve(cholesky_or_nan(S), res_proj[..., None])[..., 0]
     gamma = (res_proj * sol).sum(-1)
     dof = torch.clamp(nobs_rows - 3, min=1)
     return gamma < chi2_mult * chi2_95(dof, max_dof=Hx_proj.shape[1]), gamma

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..cam import models as cam_models
-from ..filter.ekf import _slot_index, cholesky_or_nan, ekf_update, initialize_invertible_block
+from ..filter.ekf import _slot_index, cho_solve, cholesky_or_nan, ekf_update, initialize_invertible_block
 from ..math import quat_to_rot, skew
 from ..math.chi2 import chi2_95
 from ..types.layout import StateLayout
@@ -50,7 +50,7 @@ def _gamma(H, r, cov, sigma_pix):
     gate rejects) where the Cholesky factor fails, as in `uvio_tpu`."""
     eye = torch.eye(H.shape[-2], dtype=H.dtype, device=H.device)
     Sm = H @ cov @ H.transpose(-1, -2) + sigma_pix**2 * eye
-    sol = torch.cholesky_solve(r[..., None], cholesky_or_nan(Sm))[..., 0]
+    sol = cho_solve(cholesky_or_nan(Sm), r[..., None])[..., 0]
     return (r * sol).sum(-1)
 
 

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from ..filter.ekf import cholesky_or_nan
+from ..filter.ekf import cho_solve, cholesky_or_nan
 from ..math import skew
 
 _GN_ITERS = 5
@@ -50,7 +50,7 @@ def _eigvals_sym3(A):
 
 def _cho_solve(A, b):
     """Solve SPD systems A x = b (batched, b a vector per system)."""
-    return torch.cholesky_solve(b[..., None], cholesky_or_nan(A))[..., 0]
+    return cho_solve(cholesky_or_nan(A), b[..., None])[..., 0]
 
 
 def triangulate_linear(uvn, mask, R_GtoC, p_CinG, min_depth=0.1, max_depth=60.0, max_cond=10000.0):

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..filter.ekf import cholesky_or_nan, ekf_update
+from ..filter.ekf import cho_solve, cholesky_or_nan, ekf_update
 from ..filter.propagator import NoiseManager, propagate_mean_cov
 from ..math import log_so3, quat_to_rot, skew
 from ..math.chi2 import chi2_95
@@ -108,7 +108,7 @@ def _compressed_gate(state, L, imu_t, imu_w, imu_a, noises, gravity_mag, chi2_mu
     rc_diag = torch.full((9,), noise_mult, dtype=dtype, device=device)
     cov = _bias_inflated_cov(state, L, noises, dt_sum)
     S = Hc @ (cov @ Hc.T) + torch.diag(rc_diag)
-    gamma = rc @ torch.cholesky_solve(rc[:, None], cholesky_or_nan(0.5 * (S + S.T)))[:, 0]
+    gamma = rc @ cho_solve(cholesky_or_nan(0.5 * (S + S.T)), rc[:, None])[:, 0]
     nine = torch.full((), 9, dtype=torch.int64, device=device)
     accept = (gamma < chi2_mult * chi2_95(nine, max_dof=9)) & (
         torch.linalg.vector_norm(state.v) < max_velocity
