@@ -92,14 +92,20 @@ Phases, each printing one JSON line:
               frames, ATE < 0.15 m and < 2.5 deg, cov_ok at every stage);
               printed: its ATE beside the fused one, the mean of each
               `last_timing` stage, host syncs per staged frame on 5 frames,
-              the largest position difference between the two.
+              the largest position difference between the two, and per
+              graphed stage its graphs beside the input shapes it met (gated:
+              no more graphs than shapes, so none per slot value).
               (b) A stereo rig (baseline 0.11 m, seed 3)
               through `StereoKLTTracker` into a two-camera `VioManager`, 30
               frames: >= 10 stereo matches a frame, median |disparity| in
               (2, 20) px, cov_ok, final position within 0.5 m, 1 fast9 + 2
-              lk_track launches per `feed`. (c) `DescriptorTracker`, 8 frames:
-              >= 15 tracks a frame, one track of length >= 6, 1 fast9 launch
-              per `feed`. (d) One `feed`'s device work through the kernels and
+              lk_track launches per `feed` (also by the profiler's kernel
+              names). (c) `DescriptorTracker`, 8 frames: >= 15 tracks a
+              frame, one track of length >= 6, 1 fast9 launch per `feed` (also
+              by the profiler's kernel names). In (a), (b), (c) and (e) every
+              hand-kernel launch that no graph key's first call made (its
+              eager warm-up) comes from a graph replay. (d) One `feed`'s
+              device work through the kernels and
               through their plain versions from the same tracker state and
               RANSAC noise: FAST-9 0.0, LK masks equal and <= 3.4e-4 px, the
               same detections. (e) `KLTTracker(histeq="CLAHE")` (cv2 on the
@@ -156,9 +162,10 @@ Phases, each printing one JSON line:
               staged `UVioManager`, 20 warm-up frames and 60 more, against
               `uvio_tpu`'s staged run (`fixtures/staged_seed7.npz`): every
               MSCKF, SLAM and UWB decision equal, position within 1e-6 m and
-              trace(cov) within 1e-6 relative on every frame; printed: the
-              mean of each stage, host syncs on the last 5 frames. None of
-              it runs a hand kernel.
+              trace(cov) within 1e-6 relative on every frame, no stage with
+              more graphs than input shapes; printed: the mean of each
+              stage, host syncs on the last 5 frames, graphs and shapes by
+              stage. None of it runs a hand kernel.
  14. batch  — B independent sequences through one batched full step
               (`pipeline.make_batched_full_step`, `torch.func.vmap` of the
               full step), on the committed fixture `fixtures/batched_seeds.npz`:
@@ -200,7 +207,8 @@ The steps run as `uvio_tpu_torch` runs them on the card: each graphed
 (`uvio_tpu_torch/graphs.py`, the port's `jax.jit`), one CUDA graph replay
 a frame for every key already captured, the hand kernels inside the
 graphs, their launches counted at each replay. Phases slice, full_step,
-manager, tracker (a) and (b), batch and estimator also print a
+manager, tracker (a), its staged twin, (b) and (c), backend (d) and its
+IMU-rate poses (`get_propagated_pose`), batch and estimator also print a
 "compiled step" line each: the eager step against the graphed one in ms a
 frame by the host clock, alternated eager, graphed, graphed, eager;
 launch calls, graph launches, memcpy calls and device kernels of one step
@@ -211,7 +219,8 @@ the profiler's kernel names, beside the replay count.
 Then the kernel table (with each kernel's bound: the larger of its bytes
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted from
 this run's inputs; `launches` summed over the slice, the tracker runs and
-`run_euroc`, `launches_by_path` for each), the `nvidia-smi` line, and the
+`run_euroc`, `launches_by_path` for each and `replay_launches_by_path`,
+those of them from graph replays), the `nvidia-smi` line, and the
 result line. Needs no network; any failed check raises.
 
     python3 chip_smoke.py --phases init,streams
@@ -961,7 +970,8 @@ def manager_bench_scenario(dev, card):
 
     # ---- the compiled step: frames 20-39 of the live float32 loop with the
     # graphed step and with the eager one; both managers take the gated
-    # run's graphed step, so no frame timed here captures
+    # run's graphed step and stages (the landmark drop is one), so no
+    # frame timed here captures
     from uvio_tpu_torch.eval.capture import drive
 
     shared = mgr.full_step
@@ -969,6 +979,7 @@ def manager_bench_scenario(dev, card):
     def live_ms(eager, frames=40):
         sim_t, m = bench_scenario(n_warm + n, seed=7, max_slam=25, dtype="float32")
         m.full_step = shared.eager if eager else shared
+        share_stages(m, mgr, eager=eager)
         totals = []
         drive(sim_t, m, frames, on_frame=lambda k, t: k >= n_warm and totals.append(m.last_timing["total"]))
         return 1e3 * statistics.fmean(totals)
@@ -1116,6 +1127,9 @@ def kernel_launches(run):
     return int(p["kernel_launch_calls"]), int(p["graph_launches"]), int(p["device_kernels"])
 
 
+WARM_KERNELS = 32
+
+
 def launch_profile(run, steps=1):
     """Per step of run(), which runs `steps` steps, from `torch.profiler`'s
     CUDA events (no operator events: they cost the host more than the
@@ -1123,7 +1137,13 @@ def launch_profile(run, steps=1):
     `key_averages()`, which is slow over them): kernel launch calls, CUDA
     graph launches, memcpy calls (the copies in and out of a graph among
     them), kernels run on the device (graph nodes included), and the hand
-    kernels run on the device by name."""
+    kernels run on the device by name.
+
+    Late in a long process the profiler drops the first few device records
+    of a trace (8 after ~90 s of the tracker phase, the `fast9` kernel that
+    opens a `DescriptorTracker.feed` among them), while every API record
+    arrives: `WARM_KERNELS` spin kernels open the trace to absorb the loss,
+    and neither they nor their launch calls are counted."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1131,11 +1151,14 @@ def launch_profile(run, steps=1):
     keys = {"cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(WARM_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     events = prof.profiler.kineto_results.events()
-    device = [e for e in events if e.device_type() == DeviceType.CUDA]
-    return {"kernel_launch_calls": sum(e.name() in keys for e in events) / steps,
+    device = [e for e in events if e.device_type() == DeviceType.CUDA and "spin_kernel" not in e.name()]
+    return {"kernel_launch_calls": (sum(e.name() in keys for e in events) - WARM_KERNELS) / steps,
             "graph_launches": sum(e.name() == "cudaGraphLaunch" for e in events) / steps,
             "memcpy_calls": sum(e.name().startswith("cudaMemcpy") for e in events) / steps,
             "device_kernels": sum(not e.name().startswith(("Memcpy", "Memset")) for e in device) / steps,
@@ -1172,6 +1195,80 @@ def compiled_step_line(phase, part, card, graphed, timing=None, launches=None, *
                 "pool_mb": sum(x["pool_bytes"] for x in stats) / 2**20, **extra, "card": card})
     log(rec)
     return rec
+
+
+def launch_record(K):
+    """The hand kernels' launch counts so far, and (`<name>_from_replays`)
+    how many of them came from CUDA graph replays."""
+    return {**K.launch_counts, **{f"{k}_from_replays": n for k, n in K.replay_counts.items()}}
+
+
+HAND = ("fast9", "lk_track", "lk_level")
+
+
+def counted(K, graphed, fn, rows):
+    """fn(), appending to `rows` its hand-kernel launches as (all, from
+    graph replays, made by the first call of a key), each a (fast9,
+    lk_track, lk_level) tuple: a key's first call runs its body eagerly
+    once (the capture's warm-up), which launches what its new graph
+    records; every other launch must come from a replay (`replays_gate`)."""
+    l0, r0 = dict(K.launch_counts), dict(K.replay_counts)
+    e0 = [len(g.entries) for g in graphed]
+    out = fn()
+    new = [e for g, n in zip(graphed, e0) for e in list(g.entries.values())[n:]]
+    rows.append((tuple(K.launch_counts[k] - l0[k] for k in HAND), tuple(K.replay_counts[k] - r0[k] for k in HAND),
+                 tuple(sum(e.launches.get(k, 0) for e in new) for k in HAND)))
+    return out
+
+
+def replays_gate(rows):
+    """True when every launch of `rows` (`counted`) that no key's first call
+    made came from a graph replay."""
+    return all(tuple(n - r for n, r in zip(total, rep)) == first for total, rep, first in rows)
+
+
+def stage_names(mgr):
+    """The graphed stages of a manager (`manager._stage`)."""
+    return sorted(n for n in vars(mgr) if n.startswith("_stage_"))
+
+
+def spy_stages(mgr, shapes):
+    """Each stage of `mgr` behind a wrapper that adds the shapes and dtypes
+    of its tensor inputs to `shapes[name]` (a set), keeping `.eager` and
+    the stage itself as `.graphed`."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    for name in stage_names(mgr):
+        stage = getattr(mgr, name)
+
+        def call(*args, _stage=stage, _name=name, **kwargs):
+            shapes.setdefault(_name, set()).add(tuple((tuple(t.shape), t.dtype) for t in tree_leaves((args, kwargs))
+                                                      if isinstance(t, torch.Tensor)))
+            return _stage(*args, **kwargs)
+
+        call.eager, call.graphed = stage.eager, stage
+        setattr(mgr, name, call)
+
+
+def stage_graphs(mgr, shapes):
+    """{stage: [graphs, distinct input shapes met]} of a spied manager
+    (`spy_stages`); raises where a stage holds more graphs than it met
+    input shapes (a graph per slot value or per other Python value)."""
+    out = {n: [getattr(mgr, n).graphed.stats()["graphs"], len(shapes.get(n, ()))] for n in stage_names(mgr)}
+    bad = {n: v for n, v in out.items() if v[0] > v[1]}
+    if bad:
+        raise RuntimeError(f"stages with more graphs than input shapes: {bad}")
+    return out
+
+
+def share_stages(mgr, source, eager=False):
+    """`mgr` runs `source`'s graphed stages (the same layout and options,
+    so the same graphs), or their eager bodies."""
+    for name in stage_names(source):
+        stage = getattr(source, name)
+        stage = getattr(stage, "graphed", stage)
+        setattr(mgr, name, stage.eager if eager else stage)
 
 
 def _hard_sim():
@@ -1282,6 +1379,8 @@ def tracker_mono_hard(K, card):
                                   p_IinC=cam.p_IinC)], fused_step=fused_step))
 
     mgr, staged = make_mgr(True), make_mgr(False)
+    staged_shapes = {}
+    spy_stages(staged, staged_shapes)
     cov_ok = hooked_cov_ok(mgr)
     staged_cov_ok, check = [], staged._check_cov_ok
     staged._check_cov_ok = lambda ok, where: (staged_cov_ok.append(bool(ok)), check(ok, where))
@@ -1290,7 +1389,7 @@ def tracker_mono_hard(K, card):
         raise RuntimeError(f"tracker on {tracker.device}, managers on {mgr.device}, {staged.device}")
     est = {"t": [], "q": [], "p": []}
     est_s = {"t": [], "q": [], "p": []}
-    n_tracks, feed_ms, mgr_ms, per_feed = [], [], [], []
+    n_tracks, feed_ms, mgr_ms, per_feed, feed_rows, outputs = [], [], [], [], [], []
     staged_rows, staged_syncs, staged_sync_src, pos_diff = [], [], set(), 0.0
     K.reset_launch_counts()
     for kind, ev in events:
@@ -1301,10 +1400,12 @@ def tracker_mono_hard(K, card):
         tc, img = ev
         before = dict(K.launch_counts)
         t0 = time.perf_counter()
-        ids, uvs = tracker.feed(tc, img)  # returns after its one read-back
+        # returns after its one read-back
+        ids, uvs = counted(K, [tracker.step_first, tracker.step_track], lambda: tracker.feed(tc, img), feed_rows)
         feed_ms.append((time.perf_counter() - t0) * 1e3)
         per_feed.append(tuple(K.launch_counts[k] - before[k] for k in ("fast9", "lk_track", "lk_level")))
         n_tracks.append(len(ids))
+        outputs.append((ids, uvs))
         mgr.feed_features(tc, [(ids, uvs)])
         if 150 <= len(n_tracks) < 155:  # a few frames in motion: the staged path's syncs
             n, src = syncs_of(lambda: staged.feed_features(tc, [(ids, uvs)]))
@@ -1322,7 +1423,7 @@ def tracker_mono_hard(K, card):
             staged_rows.append(dict(staged.last_timing))
         if mgr.is_initialized and staged.is_initialized:
             pos_diff = max(pos_diff, float(np.abs(est["p"][-1] - est_s["p"][-1]).max()))
-    launches = dict(K.launch_counts)
+    launches = launch_record(K)
 
     def posyaw(e):
         t = np.asarray(e["t"])
@@ -1379,6 +1480,7 @@ def tracker_mono_hard(K, card):
            statistics.fmean(mgr_ms), "manager_dtype": mgr.cfg.dtype,
            "fast9_lk_track_lk_level_launches_per_feed": sorted(set(per_feed[1:])),
            "first_feed_launches": per_feed[0], "launches": launches,
+           "every_launch_after_a_keys_first_call_from_a_replay": replays_gate(feed_rows),
            "host_syncs_per_feed": syncs.per_frame, "sync_sources": syncs.sources,
            "kernel_launches_per_feed": n_launch / 5, "hand_kernels_per_feed_by_profiler": by_name,
            "kernel_launches_consumed_by": ["VioManager (fused)", "VioManager (staged)"], "card": card}
@@ -1398,16 +1500,53 @@ def tracker_mono_hard(K, card):
              "stage_ms_mean": {k: statistics.fmean(r[k] for r in staged_rows) * 1e3 for k in keys},
              "fused_frame_ms_mean": statistics.fmean(mgr_ms),
              "host_syncs_per_staged_frame": staged_syncs, "staged_sync_sources": sorted(staged_sync_src),
-             "max_position_diff_staged_vs_fused_m": pos_diff, "card": card}
+             "max_position_diff_staged_vs_fused_m": pos_diff,
+             "stage_graphs_and_input_shapes": stage_graphs(staged, staged_shapes), "card": card}
     log(rec_s)
     if not (res["n"] >= 100 and min(n_tracks[3:]) >= 15 and res["rmse_pos"] < 0.15
             and res["rmse_ori_deg"] < 2.5 and cov_ok_all and len(cov_ok) >= 100 and one_and_one
-            and syncs.per_frame == [1] * 5
+            and syncs.per_frame == [1] * 5 and replays_gate(feed_rows)
             and by_name == {"fast9_kernel": 1, "lk_kernel": 1, "lk_level_kernel": 0}):
         raise RuntimeError("the hard mono tracker run failed its gates")
     if not (res_s["n"] >= 100 and res_s["rmse_pos"] < 0.15 and res_s["rmse_ori_deg"] < 2.5
             and all(staged_cov_ok) and len(staged_cov_ok) >= 100):
         raise RuntimeError("the staged manager on the hard frames failed its gates")
+
+    # the compiled step of the staged twin: frames 150-169 (in motion) of
+    # fresh staged managers fed the same tracker output, eager and graphed
+    # in turns, each from the first frame on the gated twin's graphs
+    # (bitwise its eager stages) and swapped to the eager bodies at frame
+    # 150 in an eager turn; ms a frame by the host clock around
+    # `feed_features` (ZUPT attempt and stages) to a synchronize; frame 170
+    # profiled once each way
+    prof = {}
+
+    def staged_ms(eager):
+        m = make_mgr(False)
+        share_stages(m, staged)
+        n, ms = 0, []
+        for kind, ev in events:
+            if kind == "imu":
+                m.feed_imu(*ev)
+                continue
+            if n == 150 and eager:
+                share_stages(m, staged, eager=True)
+            if n == 170:
+                if eager not in prof:
+                    prof[eager] = launch_profile(lambda: m.feed_features(ev[0], [outputs[n]]))
+                break
+            t0 = time.perf_counter()
+            m.feed_features(ev[0], [outputs[n]])
+            torch.cuda.synchronize()
+            if n >= 150:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            n += 1
+        return statistics.fmean(ms)
+
+    timing = abba(lambda: staged_ms(True), lambda: staged_ms(False))
+    compiled_step_line("tracker", "staged VioManager of the hard run (a), float64, frames 150-169", card,
+                       [getattr(staged, n).graphed for n in stage_names(staged)], timing,
+                       {"eager": prof[True], "graphed": prof[False]})
     return launches, cam, frames
 
 
@@ -1441,9 +1580,16 @@ def tracker_stereo(K, card):
     g0 = sim.get_gt_state(sim.t_start)
     mgr.initialize_with_gt(sim.t_start, g0["q_GtoI"], g0["p_IinG"], g0["v_IinG"], g0["bg"], g0["ba"])
     cov_ok = hooked_cov_ok(mgr)
-    tracker = StereoKLTTracker(cams[0].intrinsics, cams[1].intrinsics, cams[0].model,
-                               num_features=120, grid=(6, 8))
-    matches, disparity, per_feed, feed_ms = [], [], [], []
+    def make_tracker(eager=False):
+        tr = StereoKLTTracker(cams[0].intrinsics, cams[1].intrinsics, cams[0].model, num_features=120, grid=(6, 8))
+        if eager:
+            for name in ("step_first", "step_track", "step_stereo"):
+                setattr(tr.left, name, getattr(tr.left, name).eager)
+        return tr
+
+    tracker = make_tracker()
+    steps = [tracker.left.step_first, tracker.left.step_track, tracker.left.step_stereo]
+    matches, disparity, per_feed, feed_ms, feed_rows = [], [], [], [], []
     K.reset_launch_counts()
     for kind, ev in events:
         if kind == "imu":
@@ -1452,7 +1598,7 @@ def tracker_stereo(K, card):
         tc, left, right = ev
         before = dict(K.launch_counts)
         t0 = time.perf_counter()
-        (ids_l, uv_l), (ids_r, uv_r) = obs = tracker.feed(tc, left, right)
+        (ids_l, uv_l), (ids_r, uv_r) = obs = counted(K, steps, lambda: tracker.feed(tc, left, right), feed_rows)
         feed_ms.append((time.perf_counter() - t0) * 1e3)
         per_feed.append(tuple(K.launch_counts[k] - before[k] for k in ("fast9", "lk_track", "lk_level")))
         mgr.feed_features(tc, obs)
@@ -1460,43 +1606,53 @@ def tracker_stereo(K, card):
             at = dict(zip(ids_l, uv_l))
             matches.append(len(ids_r))
             disparity.append(float(np.median([abs(uv_r[j][0] - at[ids_r[j]][0]) for j in range(len(ids_r))])))
-    launches = dict(K.launch_counts)
+    launches = launch_record(K)
     p_err = float(np.linalg.norm(mgr.get_pose()[1] - sim.get_gt_state(tc)["p_IinG"]))
     cov_ok_all = all(bool(x.item()) for x in cov_ok)
+    frames = [ev for kind, ev in events if kind == "cam"]
+
+    # the compiled step: the hand kernels each `feed` runs on the device, by
+    # the profiler's kernel names (5 feeds after the first two); ms a `feed`
+    # of fresh trackers over 12 frames, eager and graphed in turns
+    def fed(eager, first, last):
+        tr = make_tracker(eager)
+        for tc, left, right in frames[:first]:
+            tr.feed(tc, left, right)
+        return tr, lambda: [tr.feed(tc, left, right) for tc, left, right in frames[first:last]]
+
+    prof = {eager: launch_profile(fed(eager, 2, 7)[1], steps=5) for eager in (True, False)}
+    by_name = prof[False]["hand_kernels"]
+
+    def ms_a_feed(eager):
+        _, run = fed(eager, 2, 14)
+        t0 = time.perf_counter()
+        run()
+        return (time.perf_counter() - t0) / 12 * 1e3
+
     rec = {"phase": "tracker", "part": "stereo, StereoKLTTracker -> two-camera VioManager",
            "frames": len(per_feed), "min_stereo_matches": min(matches), "median_abs_disparity_px_range":
            [min(disparity), max(disparity)], "cov_ok_all": cov_ok_all, "steps": len(cov_ok),
            "final_p_err_m": p_err, "tracker_feed_ms_median": statistics.median(feed_ms[3:]),
            "fast9_lk_track_lk_level_launches_per_feed": sorted(set(per_feed[1:])),
-           "first_feed_launches": per_feed[0], "launches": launches, "card": card}
+           "first_feed_launches": per_feed[0], "launches": launches,
+           "every_launch_after_a_keys_first_call_from_a_replay": replays_gate(feed_rows),
+           "hand_kernels_per_feed_by_profiler": by_name,
+           "stereo_match_graphs": tracker.left.step_stereo.stats()["graphs"], "card": card}
     log(rec)
     if not (min(matches) >= 10 and 2.0 < min(disparity) and max(disparity) < 20.0 and cov_ok_all
             and len(cov_ok) == 30 and p_err < 0.5 and per_feed[0] == (1, 1, 0)
-            and all(x == (1, 2, 0) for x in per_feed[1:])):
+            and all(x == (1, 2, 0) for x in per_feed[1:]) and replays_gate(feed_rows)
+            and by_name == {"fast9_kernel": 1, "lk_kernel": 2, "lk_level_kernel": 0}):
         raise RuntimeError("the stereo tracker run failed its gates")
-
-    frames = [ev for kind, ev in events if kind == "cam"]
-
-    def ms_a_feed(eager):
-        tr = StereoKLTTracker(cams[0].intrinsics, cams[1].intrinsics, cams[0].model, num_features=120, grid=(6, 8))
-        if eager:
-            tr.left.step_first, tr.left.step_track = tr.left.step_first.eager, tr.left.step_track.eager
-        for tc, left, right in frames[:2]:
-            tr.feed(tc, left, right)
-        t0 = time.perf_counter()
-        for tc, left, right in frames[2:14]:
-            tr.feed(tc, left, right)
-        return (time.perf_counter() - t0) / 12 * 1e3
-
-    compiled_step_line("tracker", "StereoKLTTracker feed (b) (its left tracker graphed, the stereo match eager)",
-                       card, [tracker.left.step_first, tracker.left.step_track],
-                       abba(lambda: ms_a_feed(True), lambda: ms_a_feed(False)))
+    compiled_step_line("tracker", "StereoKLTTracker feed (b)", card, steps,
+                       abba(lambda: ms_a_feed(True), lambda: ms_a_feed(False)),
+                       {"eager": prof[True], "graphed": prof[False]})
     return launches
 
 
 def tracker_descriptor(K, card):
-    """8 rendered frames (seed 3) through DescriptorTracker. Returns the
-    launch counts."""
+    """8 rendered frames (seed 3) through DescriptorTracker under the gates;
+    then the compiled step over 12 more. Returns the launch counts."""
     from uvio_tpu_torch.frontend.descriptor import DescriptorTracker
     from uvio_tpu_torch.sim import SimParams, Simulator, circle_trajectory
 
@@ -1504,30 +1660,60 @@ def tracker_descriptor(K, card):
                     trajectory=circle_trajectory(duration=10.0))
     cam = sim.params.cameras[0]
     frames = []
-    for _ in range(8):
+    for _ in range(14):
         tc, _ = sim.get_next_cam()
         frames.append((tc, sim.render_image(tc)))
-    tracker = DescriptorTracker(cam.intrinsics, cam.model, grid=(6, 8))
-    lengths, n_tracks, per_feed, feed_ms = {}, [], [], []
+
+    def make_tracker(eager=False):
+        tr = DescriptorTracker(cam.intrinsics, cam.model, grid=(6, 8))
+        if eager:
+            tr.step_first, tr.step_match = tr.step_first.eager, tr.step_match.eager
+        return tr
+
+    tracker = make_tracker()
+    steps = [tracker.step_first, tracker.step_match]
+    lengths, n_tracks, per_feed, feed_ms, feed_rows = {}, [], [], [], []
     K.reset_launch_counts()
-    for tc, img in frames:
+    for tc, img in frames[:8]:
         before = dict(K.launch_counts)
         t0 = time.perf_counter()
-        ids, _ = tracker.feed(tc, img)
+        ids, _ = counted(K, steps, lambda: tracker.feed(tc, img), feed_rows)
         feed_ms.append((time.perf_counter() - t0) * 1e3)
         per_feed.append(tuple(K.launch_counts[k] - before[k] for k in ("fast9", "lk_track", "lk_level")))
         n_tracks.append(len(ids))
         for fid in ids:
             lengths[fid] = lengths.get(fid, 0) + 1
-    launches = dict(K.launch_counts)
-    rec = {"phase": "tracker", "part": "descriptor, DescriptorTracker", "frames": len(frames),
+    launches = launch_record(K)
+
+    # the compiled step, as for the stereo tracker (b)
+    def fed(eager, first, last):
+        tr = make_tracker(eager)
+        for tc, img in frames[:first]:
+            tr.feed(tc, img)
+        return lambda: [tr.feed(tc, img) for tc, img in frames[first:last]]
+
+    prof = {eager: launch_profile(fed(eager, 2, 7), steps=5) for eager in (True, False)}
+    by_name = prof[False]["hand_kernels"]
+
+    def ms_a_feed(eager):
+        run = fed(eager, 2, 14)
+        t0 = time.perf_counter()
+        run()
+        return (time.perf_counter() - t0) / 12 * 1e3
+
+    rec = {"phase": "tracker", "part": "descriptor, DescriptorTracker", "frames": 8,
            "min_tracks": min(n_tracks), "longest_track": max(lengths.values()),
            "tracker_feed_ms_median": statistics.median(feed_ms[3:]),
            "fast9_lk_track_lk_level_launches_per_feed": sorted(set(per_feed)), "launches": launches,
-           "card": card}
+           "every_launch_after_a_keys_first_call_from_a_replay": replays_gate(feed_rows),
+           "hand_kernels_per_feed_by_profiler": by_name, "card": card}
     log(rec)
-    if not (min(n_tracks) >= 15 and max(lengths.values()) >= 6 and all(x == (1, 0, 0) for x in per_feed)):
+    if not (min(n_tracks) >= 15 and max(lengths.values()) >= 6 and all(x == (1, 0, 0) for x in per_feed)
+            and replays_gate(feed_rows) and by_name == {"fast9_kernel": 1, "lk_kernel": 0, "lk_level_kernel": 0}):
         raise RuntimeError("the descriptor tracker run failed its gates")
+    compiled_step_line("tracker", "DescriptorTracker feed (c)", card, steps,
+                       abba(lambda: ms_a_feed(True), lambda: ms_a_feed(False)),
+                       {"eager": prof[True], "graphed": prof[False]})
     return launches
 
 
@@ -1601,12 +1787,14 @@ def tracker_clahe(K, card):
                                      device=device)
     tracker = make("cuda:0")
     noise = gumbel_noise((64, 8, tracker.cap), torch.Generator().manual_seed(5), "cpu")
-    lengths, prev, drifts, n_tracks, per_feed, feed_ms = {}, {}, [], [], [], []
+    lengths, prev, drifts, n_tracks, per_feed, feed_ms, feed_rows = {}, {}, [], [], [], [], []
     K.reset_launch_counts()
     for i, (tc, img) in enumerate(frames):
         before = dict(K.launch_counts)
         t0 = time.perf_counter()
-        ids, uvs = tracker.feed(tc, img, gumbel=noise.to(tracker.device) if i == 0 else None)
+        ids, uvs = counted(K, [tracker.step_first, tracker.step_track],
+                           lambda: tracker.feed(tc, img, gumbel=noise.to(tracker.device) if i == 0 else None),
+                           feed_rows)
         feed_ms.append((time.perf_counter() - t0) * 1e3)
         per_feed.append(tuple(K.launch_counts[k] - before[k] for k in ("fast9", "lk_track", "lk_level")))
         if i == 0:
@@ -1617,17 +1805,19 @@ def tracker_clahe(K, card):
             if fid in prev:
                 drifts.append(float(np.linalg.norm(uv - prev[fid])))
             prev[fid] = uv
-    launches = dict(K.launch_counts)
+    launches = launch_record(K)
     same_first = all(np.array_equal(a, b) for a, b in zip(*first))
     rec = {"phase": "tracker", "part": "CLAHE, KLTTracker(histeq=\"CLAHE\")", "frames": len(frames),
            "min_tracks": min(n_tracks), "longest_track": max(lengths.values()),
            "median_drift_px": statistics.median(drifts), "first_frame_equals_cpu": same_first,
            "first_frame_detections": len(first[0][0]), "tracker_feed_ms_median": statistics.median(feed_ms[3:]),
            "fast9_lk_track_lk_level_launches_per_feed": sorted(set(per_feed[1:])),
-           "first_feed_launches": per_feed[0], "launches": launches, "card": card}
+           "first_feed_launches": per_feed[0], "launches": launches,
+           "every_launch_after_a_keys_first_call_from_a_replay": replays_gate(feed_rows), "card": card}
     log(rec)
     if not (min(n_tracks) >= 20 and max(lengths.values()) >= 8 and statistics.median(drifts) < 30.0
-            and same_first and per_feed[0] == (1, 0, 0) and all(x == (1, 1, 0) for x in per_feed[1:])):
+            and same_first and per_feed[0] == (1, 0, 0) and all(x == (1, 1, 0) for x in per_feed[1:])
+            and replays_gate(feed_rows)):
         raise RuntimeError("the CLAHE tracker run failed its gates")
     return launches
 
@@ -1758,9 +1948,9 @@ def slice_phase(K, dev, render_out, card):
 
     K.reset_launch_counts()
     st, infos = run_slice()
-    launches = dict(K.launch_counts)
+    launches = launch_record(K)
     n_steps = len(windows)
-    if launches != {"fast9": n_steps, "lk_track": n_steps, "lk_level": 0}:
+    if dict(K.launch_counts) != {"fast9": n_steps, "lk_track": n_steps, "lk_level": 0}:
         raise RuntimeError(f"launch counts {launches} for {n_steps} steps")
     cov_ok = [bool(x["cov_ok"].item()) for x in infos]
     used = sum(int(x["num_used"].item()) for x in infos)
@@ -1953,7 +2143,7 @@ def init_run_euroc(K, card):
         finally:
             T.KLTTracker.feed = feed
         run_s = time.perf_counter() - t0
-        launches = dict(K.launch_counts)
+        launches = launch_record(K)
         gt = EurocDataset(root).groundtruth()
     res = ate(t, q, p, gt["t"], gt["q_GtoI"], gt["p"], method="posyaw")
     native = get_lib() is not None
@@ -2261,6 +2451,8 @@ def backend_staged_fixture(card):
     sim, mgr = bench_scenario(STAGED_WARM + 100, seed=7, max_slam=25, dtype="float64", fused_step=False)
     if mgr.device != torch.device("cuda:0"):
         raise RuntimeError(f"the manager runs on {mgr.device}")
+    shapes = {}
+    spy_stages(mgr, shapes)
     drive(sim, mgr, STAGED_WARM)
     recs, before, rows, syncs, sources = [], [mgr.__dict__.get("last_msckf_info")], [], [], set()
 
@@ -2286,11 +2478,61 @@ def backend_staged_fixture(card):
            "uwb_ranges_accepted_last_set": int(got["uwb_accepted"].sum()),
            "slam_slots_full_at_end": int((got["slam_fid"][-1] >= 0).sum()),
            "stage_ms_mean": {k: statistics.fmean(r[k] for r in rows) * 1e3 for k in keys},
-           "host_syncs_per_frame": syncs, "sync_sources": sorted(sources), "run_s": run_s, "card": card}
+           "host_syncs_per_frame": syncs, "sync_sources": sorted(sources), "run_s": run_s,
+           "stage_graphs_and_input_shapes": stage_graphs(mgr, shapes), "card": card}
     log(rec)
     if not (len(got["t"]) == len(ref["t"]) and not d["decisions"] and d["p_m"] <= 1e-6
             and d["cov_trace_rel"] <= 1e-6):
         raise RuntimeError("the staged UVioManager differs from uvio_tpu's staged run")
+
+    # the compiled step: fresh staged managers on the gated run's graphs
+    # (bitwise its eager stages) through the warm-up frames, then, eager
+    # or graphed in turns, 10 timed frames (`last_timing` total: the UWB
+    # drain to the frame's last read-back, without the simulator) and 50
+    # IMU-rate poses after them (`get_propagated_pose` at each IMU sample,
+    # host clock to each pose's read-back); one frame and one pose
+    # profiled each way
+    prof = {"frame": {}, "pose": {}}
+
+    def turn(eager):
+        sim_t, m = bench_scenario(STAGED_WARM + 100, seed=7, max_slam=25, dtype="float64", fused_step=False)
+        share_stages(m, mgr)
+        drive(sim_t, m, STAGED_WARM)
+        share_stages(m, mgr, eager=eager)
+        totals = []
+        drive(sim_t, m, 10, on_frame=lambda k, tc: totals.append(m.last_timing["total"]))
+        frame_ms = 1e3 * statistics.fmean(totals)
+        if eager not in prof["frame"]:
+            prof["frame"][eager] = launch_profile(lambda: drive(sim_t, m, 1))
+        imu = []
+        while len(imu) < 51:  # the IMU after the frame, up to before the next one
+            imu.append(sim_t.get_next_imu())
+        t0 = time.perf_counter()
+        for t, w, a in imu[:50]:
+            m.feed_imu(t, w, a)
+            m.get_propagated_pose(t)
+        pose_ms = (time.perf_counter() - t0) / 50 * 1e3
+        if eager not in prof["pose"]:
+            m.feed_imu(*imu[50])
+            prof["pose"][eager] = launch_profile(lambda: m.get_propagated_pose(imu[50][0]))
+        return frame_ms, pose_ms
+
+    t, w, a = sim.get_next_imu()  # capture the pose step's graph before any turn
+    mgr.feed_imu(t, w, a)
+    mgr.get_propagated_pose(t)
+    frame_t, pose_t = {"eager_ms": [], "graphed_ms": []}, {"eager_ms": [], "graphed_ms": []}
+    for eager in (True, False, False, True):
+        key = "eager_ms" if eager else "graphed_ms"
+        frame_ms, pose_ms = turn(eager)
+        frame_t[key].append(frame_ms)
+        pose_t[key].append(pose_ms)
+    stages = [getattr(mgr, n).graphed for n in stage_names(mgr) if n != "_stage_fast_prop"]
+    compiled_step_line("backend", "staged UVioManager (d), bench.py's scenario, float64, 10 frames a turn", card,
+                       stages, frame_t, {"eager": prof["frame"][True], "graphed": prof["frame"][False]},
+                       graphs_by_stage={n: getattr(mgr, n).graphed.stats()["graphs"] for n in stage_names(mgr)})
+    compiled_step_line("backend", "get_propagated_pose (IMU-rate pose) of the staged UVioManager (d), 50 IMU "
+                       "samples a turn", card, [mgr._stage_fast_prop.graphed], pose_t,
+                       {"eager": prof["pose"][True], "graphed": prof["pose"][False]})
 
 
 def backend_phase(card):
@@ -2577,6 +2819,7 @@ def main(argv=None):
         total = {k: sum(p[k] for p in by_path.values()) for k in kernels}
         for k in kernels:
             kernels[k]["launches_by_path"] = {path: p[k] for path, p in by_path.items()}
+            kernels[k]["replay_launches_by_path"] = {path: p[f"{k}_from_replays"] for path, p in by_path.items()}
         src = "uvio_tpu_torch/csrc/"
         log({"kernels": [
             {"name": "fast9", "route": "cuda", "source": src + "fast9.cu",

@@ -9,14 +9,16 @@ the committed fixture's frames with every `FramePlan` bit on and off
 (ZUPT in both of its forms), the packed-bundle step of the managers, the
 MSCKF-only step, the batched full and MSCKF-only steps on a small batch,
 the fused image->pose step and the KLT tracker's two device steps at
-small sizes. None of them may run an operation that waits for the
-device (`_local_scalar_dense`, `nonzero`, `masked_select`, the `unique`
-family, `equal`, `is_nonzero`, indexing with a bool mask), that lifts
-host data into a tensor (`lift_fresh`), or `cholesky_solve`, whose
-batched form on the card is a MAGMA routine that allocates from the
-host. As on the card, each body runs
-once before it is recorded: that run is the graph's eager warm-up, which
-fills the `lru_cache`d device tables.
+small sizes, the staged managers' stages (`manager._stage`) on the
+inputs a live staged `UVioManager` gives them (the ZUPT stage in both
+forms), and the descriptor tracker's and the stereo match's device
+steps. None of them may run an operation that waits for the device
+(`_local_scalar_dense`, `nonzero`, `masked_select`, the `unique` family,
+`equal`, `is_nonzero`, indexing with a bool mask), that lifts host data
+into a tensor (`lift_fresh`), or `cholesky_solve`, whose batched form on
+the card is a MAGMA routine that allocates from the host. As on the
+card, each body runs once before it is recorded: that run is the graph's
+eager warm-up, which fills the `lru_cache`d device tables.
 
 It also checks the results a replay returns: views of one clone of the
 graph's output buffers per dtype (`graphs.Packer`), equal to the eager
@@ -254,3 +256,117 @@ def test_tracker_device_steps_capture_safe():
     gumbel = torch.rand((64, 8, 24), generator=gen)
     pyr, packed = _check(tr.step_track.eager, tr.prev_pyr, tr._upload(imgs[1]), tr._upload_table(), gumbel)
     assert packed.shape[1] == 3 and packed.shape[0] > 24  # the 24 tracks, then the detections
+
+
+STAGES = ("_stage_prop", "_stage_msckf", "_stage_marg", "_stage_slam_up", "_stage_slam_init", "_stage_marg_slam",
+          "_stage_anchor_change", "_stage_prop_only", "_stage_uwb", "_stage_fast_prop")
+
+
+@pytest.fixture(scope="module")
+def staged():
+    """A staged `UVioManager` on bench.py's scenario (25 SLAM slots, 4
+    anchors, float64) driven 24 frames, past its first SLAM inits, then a
+    landmark freed and a pose propagated at IMU rate; each graphed stage's
+    body checked on its first call with the inputs the live loop gives it
+    (`_check`). {stage: its checked result}."""
+    from uvio_tpu_torch.eval.capture import bench_scenario, drive
+
+    sim, mgr = bench_scenario(40, seed=7, max_slam=25, dtype="float64", device="cpu", fused_step=False)
+    checked = {}
+
+    def first_call(name, stage):
+        def call(*args, **kwargs):
+            if name in checked:
+                return stage(*args, **kwargs)
+            checked[name] = _check(stage.eager, *args, **kwargs)
+            return checked[name]
+        return call
+
+    for name in STAGES:
+        setattr(mgr, name, first_call(name, getattr(mgr, name)))
+    drive(sim, mgr, 24)
+    mgr._free_landmark(next(iter(mgr.slam_slot_by_fid)))
+    for _ in range(4):
+        mgr.feed_imu(*sim.get_next_imu())
+    mgr.get_propagated_pose(mgr._imu_t[-1])
+    return mgr, checked
+
+
+@pytest.mark.parametrize("name", STAGES)
+def test_staged_stage_capture_safe(staged, name):
+    """Every graphed stage of the staged managers (`manager._stage`): the
+    seven of `uvio_tpu`'s `_jit_*` run here, the anchor change, the UWB
+    drain's propagation and update, and IMU-rate pose output."""
+    mgr, checked = staged
+    out = checked[name]
+    if name == "_stage_fast_prop":
+        assert out.shape == (10,)
+    else:
+        st = out[0] if isinstance(out, tuple) else out
+        assert st.cov.shape == mgr.state.cov.shape
+
+
+@pytest.mark.parametrize("explicit", [False, True], ids=["inertial", "explicit"])
+def test_staged_zupt_capture_safe(staged, explicit):
+    """The staged ZUPT attempt in both forms, on the driven state and the
+    IMU since its last frame."""
+    import dataclasses as dc
+
+    from uvio_tpu_torch.uwb_manager import UVioManager
+
+    mgr, _ = staged
+    z = UVioManager(dc.replace(mgr.cfg, try_zupt=True, zupt_explicit=explicit))
+    t = mgr._imu_t[-1]
+    tt, ww, aa, _ = mgr._select_imu_window(t)
+    st, accepted, gamma = _check(z._stage_zupt.eager, mgr.state, **mgr._window(tt, ww, aa, t))
+    assert st.cov.shape == mgr.state.cov.shape and accepted.shape == gamma.shape == ()
+
+
+def test_descriptor_device_steps_capture_safe():
+    """`DescriptorTracker`'s first-frame and matching device steps at
+    120x160."""
+    from uvio_tpu_torch.frontend.descriptor import DescriptorTracker
+
+    gen = torch.Generator().manual_seed(2)
+    intr = np.array([100.0, 100.0, 80.0, 60.0, 0, 0, 0, 0])
+    tr = DescriptorTracker(intr, grid=(3, 4), device="cpu")
+    imgs = [torch.rand((120, 160), generator=gen) * 255.0 for _ in range(2)]
+    desc, valid, packed = _check(tr.step_first.eager, imgs[0])
+    assert packed.shape == (12, 3) and desc.shape == (12, 8)
+    desc, valid, packed = _check(tr.step_match.eager, desc, valid, imgs[1])
+    assert packed.shape == (12, 4) and valid.shape == (12,)
+
+
+def test_stereo_match_capture_safe():
+    """`KLTTracker.stereo_match`'s device step on a table padded to the
+    tracker's capacity, at 120x160."""
+    from uvio_tpu_torch.frontend.tracker import KLTTracker, to_device
+
+    gen = torch.Generator().manual_seed(3)
+    intr = np.array([100.0, 100.0, 80.0, 60.0, 0, 0, 0, 0])
+    tr = KLTTracker(intr, num_features=24, grid=(3, 4), device="cpu")
+    imgs = [(torch.rand((120, 160), generator=gen) * 255.0).numpy() for _ in range(2)]
+    tr.feed(0.0, imgs[0])
+    tab = np.zeros((tr.cap, 3), np.float32)
+    tab[:5, :2], tab[:5, 2] = tr.uv[:5], 1.0
+    packed = _check(tr.step_stereo.eager, tr.prev_pyr, tr._upload(imgs[1]), to_device(tab, tr.device))
+    assert packed.shape == (tr.cap, 3)
+
+
+def test_packer_views_are_aligned():
+    """Every view of a packed buffer starts a multiple of `graphs.ALIGN`
+    bytes into it, as a fresh allocation would: on the card, kernels that
+    pick their code by operand alignment (cuBLAS's) then round a graph's
+    inputs and outputs as they round the eager step's."""
+    from uvio_tpu_torch.graphs import ALIGN
+
+    ts = [torch.randn(3), torch.randn(182, 182, dtype=T64), torch.randn((), dtype=T64), torch.ones(5, dtype=torch.bool),
+          torch.arange(7), torch.randn(0), torch.randn(128)]
+    packer = Packer(ts)
+    flats = packer.pack(ts)
+    views = packer.unpack(flats)
+    for t, v in zip(ts, views):
+        assert torch.equal(t, v) and v.shape == t.shape and v.dtype == t.dtype
+        assert (v.data_ptr() - flats[v.dtype].data_ptr()) % ALIGN == 0 or not v.numel()
+    again = packer.unpack(packer.pack([t + 1 for t in ts[:2]] + ts[2:], out=flats))
+    assert torch.equal(again[0], ts[0] + 1) and torch.equal(again[1], ts[1] + 1)

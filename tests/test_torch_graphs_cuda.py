@@ -1,8 +1,12 @@
 """The graphed steps on the card (`graphs.graphed`, the port's `jax.jit`)
 against their eager selves on the same card: the full step on the
 committed fixture (and the managers' packed-bundle step live), the
-batched full and MSCKF-only steps, the fused image->pose step and the KLT
-tracker's `feed`. For each: every info and decision equal, float64
+batched full and MSCKF-only steps, the fused image->pose step, the KLT
+tracker's `feed`, the staged `VioManager` and `UVioManager` frame for
+frame (every stage, the UWB drain, ZUPT and the anchor change bitwise,
+one graph a stage whatever the slot), IMU-rate poses, and the stereo and
+descriptor trackers' `feed`s (every hand-kernel launch after a key's
+first call from a replay). For each: every info and decision equal, float64
 states within 1e-12 relative (the largest printed), one graph captured a
 distinct key met, no host sync in a replay
 (`torch.cuda.set_sync_debug_mode("error")`), a result kept from frame k
@@ -35,7 +39,7 @@ from uvio_tpu_torch.pipeline import (
     pack_bundle,
     plan_frame,
 )
-from uvio_tpu_torch.types.state import state_from_numpy
+from uvio_tpu_torch.types.state import FIELDS, state_from_numpy
 
 pytestmark = pytest.mark.cuda
 T64 = torch.float64
@@ -277,3 +281,191 @@ def test_failed_capture_raises(dev):
     ok = graphed(lambda y: y * 2.0, "fine")
     assert torch.equal(ok(x), x * 2.0) and torch.equal(ok(x + 1), (x + 1) * 2.0)
     assert ok.stats()["graphs"] == 1
+
+
+def _stages(mgr):
+    return sorted(n for n in vars(mgr) if n.startswith("_stage_"))
+
+
+def _replaying(mgr, calls):
+    """Every graphed stage of `mgr` called through a wrapper that, once the
+    stage holds its graph (one key a stage here, so every later call is a
+    replay), calls it with no host sync allowed; `calls[name]` collects
+    the slot values the stage was given."""
+    for name in _stages(mgr):
+        stage = getattr(mgr, name)
+
+        def call(*args, _stage=stage, _name=name, **kwargs):
+            slot = kwargs.get("slot", kwargs.get("marg_slot"))
+            calls.setdefault(_name, []).append(None if slot is None else int(slot))
+            if _stage.entries:
+                return _replay_without_sync(lambda: _stage(*args, **kwargs))
+            return _stage(*args, **kwargs)
+
+        call.eager, call.graphed = stage.eager, stage
+        setattr(mgr, name, call)
+
+
+def _eager(mgr):
+    for name in _stages(mgr):
+        setattr(mgr, name, getattr(mgr, name).eager)
+
+
+def _assert_states_equal(a, b, what):
+    for f in FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), (what, f)
+
+
+def _rest_then_motion(dev, fused_step=False):
+    """The mono scenario of chip_smoke.py's manager phase: seed 9, 2 s at
+    rest, static init and ZUPT, float64, as a staged `VioManager`."""
+    from uvio_tpu_torch.init.static_init import StaticInitOptions
+    from uvio_tpu_torch.manager import CameraConfig, VioConfig, VioManager
+    from uvio_tpu_torch.sim import SimParams, Simulator, circle_trajectory
+
+    sim = Simulator(SimParams(sim_freq_imu=200.0, sim_freq_cam=10.0, num_pts=60, seed=9),
+                    trajectory=circle_trajectory(duration=14.0, still_time=2.0))
+    cam = sim.params.cameras[0]
+    mgr = VioManager(VioConfig(
+        max_clones=11, sigma_pix=sim.params.sigma_pix, dtype="float64", use_static_init=True, try_zupt=True,
+        zupt_max_disparity=3.0, init_options=StaticInitOptions(window_time=1.0, imu_thresh=0.1),
+        cameras=[CameraConfig(model=cam.model, intrinsics=cam.intrinsics, q_ItoC=cam.q_ItoC, p_IinC=cam.p_IinC)],
+        fused_step=fused_step))
+    return sim, mgr
+
+
+@pytest.mark.parametrize("which", ["VioManager", "UVioManager"])
+def test_staged_manager_graphs_equal_eager(dev, which):
+    """A staged manager graphed against its eager twin on the same events,
+    frame for frame bitwise (state, slot maps, the ZUPT and UWB decisions),
+    every replay of a stage with no host sync, and one graph a stage
+    however many slot values the marginalizations pass: the mono
+    rest-then-motion run (static init, ZUPT, 30 frames), and `bench.py`'s
+    scenario (UWB drain, SLAM, anchor changes; 26 frames, past its first
+    SLAM inits)."""
+    from uvio_tpu_torch.eval.capture import bench_scenario, drive
+
+    if which == "VioManager":
+        make, n = (lambda: _rest_then_motion(dev)), 30
+    else:
+        make, n = (lambda: bench_scenario(60, seed=7, max_slam=25, dtype="float64", fused_step=False)), 26
+    (sim_g, g), (sim_e, e) = make(), make()
+    calls = {}
+    _replaying(g, calls)
+    _eager(e)
+    for k in range(n):
+        assert drive(sim_g, g, 1) == drive(sim_e, e, 1) == 1
+        _assert_states_equal(g.state, e.state, f"frame {k}")
+        assert g.slot_times == e.slot_times and g.slam_slot_by_fid == e.slam_slot_by_fid, k
+        for info in ("last_zupt_info", "last_uwb_info"):
+            gi, ei = g.__dict__.get(info), e.__dict__.get(info)
+            assert (gi is None) == (ei is None), (k, info)
+            if gi is not None:
+                assert all(torch.equal(torch.as_tensor(gi[x]), torch.as_tensor(ei[x])) for x in gi), (k, info)
+    assert g.is_initialized
+    ran = {name for name, c in calls.items() if c}
+    want = {"_stage_prop", "_stage_msckf", "_stage_marg"} | (
+        {"_stage_zupt"} if which == "VioManager" else
+        {"_stage_slam_up", "_stage_slam_init", "_stage_anchor_change", "_stage_prop_only", "_stage_uwb"})
+    assert want <= ran, want - ran
+    for name in ran:
+        assert getattr(g, name).graphed.stats()["graphs"] == 1, name
+    assert len(set(calls["_stage_marg"])) >= 5  # one graph, many slot values
+    print(f"{which}: {n} frames bitwise equal to eager; stages {sorted(ran)}, "
+          f"marginalized slots {sorted(set(calls['_stage_marg']))}, one graph each")
+
+
+def test_propagated_pose_graph_equals_eager(dev):
+    """50 IMU-rate poses of a staged `UVioManager` between two frames: the
+    graphed mean-only propagation against its eager body bitwise, each
+    replay with no host sync, one graph for every window."""
+    from uvio_tpu_torch.eval.capture import bench_scenario, drive
+
+    sim, mgr = bench_scenario(40, seed=7, max_slam=25, dtype="float64", fused_step=False)
+    drive(sim, mgr, 12)
+    calls = {}
+    _replaying(mgr, calls)
+    graphed_call = mgr._stage_fast_prop
+    for i in range(50):
+        t, w, a = sim.get_next_imu()
+        mgr.feed_imu(t, w, a)
+        mgr._stage_fast_prop = graphed_call
+        got = mgr.get_propagated_pose(t)
+        mgr._stage_fast_prop = graphed_call.eager
+        ref = mgr.get_propagated_pose(t)
+        assert all(np.array_equal(x, y) for x, y in zip(got, ref)), i
+    assert len(calls["_stage_fast_prop"]) == 50 and graphed_call.graphed.stats()["graphs"] == 1
+    assert float(np.linalg.norm(got[1] - mgr.get_pose()[1])) > 0.0
+
+
+def _rendered(n, stereo=False):
+    from uvio_tpu_torch.sim import SimCamera, SimParams, Simulator, circle_trajectory
+
+    cams = [SimCamera(), SimCamera(p_IinC=np.array([-0.11, 0.0, 0.0]))]
+    sim = Simulator(SimParams(sim_freq_cam=10.0, num_pts=60, seed=3, cameras=cams),
+                    trajectory=circle_trajectory(duration=10.0))
+    frames = []
+    for _ in range(n):
+        t, _ = sim.get_next_cam()
+        frames.append((t, sim.render_image(t, cam_idx=0)) + ((sim.render_image(t, cam_idx=1),) if stereo else ()))
+    return cams, frames
+
+
+def test_descriptor_tracker_graph_equals_eager(dev):
+    """12 `DescriptorTracker.feed`s graphed against eager: the same ids and
+    corners every frame, 1 `fast9` a `feed` (from a replay on every `feed`
+    after the first of each key), one graph a step, no host sync in a
+    replay of the matching step."""
+    from uvio_tpu_torch.frontend.descriptor import DescriptorTracker
+
+    cams, frames = _rendered(12)
+    a, b = DescriptorTracker(cams[0].intrinsics, cams[0].model, grid=(6, 8)), \
+        DescriptorTracker(cams[0].intrinsics, cams[0].model, grid=(6, 8))
+    b.step_first, b.step_match = b.step_first.eager, b.step_match.eager
+    for k, (t, img) in enumerate(frames):
+        K.reset_launch_counts()
+        ids_a, uv_a = a.feed(t, img)
+        assert K.launch_counts == {"fast9": 1, "lk_track": 0, "lk_level": 0}, (k, K.launch_counts)
+        assert K.replay_counts["fast9"] == (0 if k < 2 else 1), (k, K.replay_counts)
+        ids_b, uv_b = b.feed(t, img)
+        assert np.array_equal(ids_a, ids_b) and np.array_equal(uv_a, uv_b), k
+    assert a.step_first.stats()["graphs"] == a.step_match.stats()["graphs"] == 1
+    assert len(ids_a) >= 15
+    _, p_desc, p_valid, _ = a.prev
+    img_d = torch.as_tensor(frames[-1][1], dtype=torch.float32, device=dev)
+    desc, valid, packed = _replay_without_sync(lambda: a.step_match(p_desc, p_valid, img_d))
+    assert packed.shape == (48, 4)
+
+
+def test_stereo_tracker_graph_equals_eager(dev):
+    """12 `StereoKLTTracker.feed`s graphed against eager: the same left and
+    right observations every frame, 1 `fast9` + 2 `lk_track` a `feed` (1 +
+    1 on the first), all from replays from the third `feed` on and the
+    stereo match's from the first tracking one; one graph for every track
+    count; no host sync in a replay of the stereo step."""
+    from uvio_tpu_torch.frontend.stereo import StereoKLTTracker
+    from uvio_tpu_torch.frontend.tracker import to_device
+
+    cams, frames = _rendered(12, stereo=True)
+    make = lambda: StereoKLTTracker(cams[0].intrinsics, cams[1].intrinsics, cams[0].model,
+                                    num_features=120, grid=(6, 8))
+    a, b = make(), make()
+    for name in ("step_first", "step_track", "step_stereo"):
+        setattr(b.left, name, getattr(b.left, name).eager)
+    counts = set()
+    for k, (t, left, right) in enumerate(frames):
+        K.reset_launch_counts()
+        obs_a = a.feed(t, left, right)
+        assert K.launch_counts == {"fast9": 1, "lk_track": 2 if k else 1, "lk_level": 0}, (k, K.launch_counts)
+        want = {0: (0, 0), 1: (0, 1)}.get(k, (1, 2))
+        assert (K.replay_counts["fast9"], K.replay_counts["lk_track"]) == want, (k, K.replay_counts)
+        obs_b = b.feed(t, left, right)
+        for (ia, ua), (ib, ub) in zip(obs_a, obs_b):
+            assert np.array_equal(ia, ib) and np.array_equal(ua, ub), k
+        counts.add(len(obs_a[0][0]))
+    assert len(counts) >= 2 and a.left.step_stereo.stats()["graphs"] == 1
+    tr = a.left
+    tab = to_device(np.concatenate([tr.uv, tr.active[:, None]], axis=1), dev)
+    img_d = tr._upload(frames[-1][2])
+    packed = _replay_without_sync(lambda: tr.step_stereo(tr.prev_pyr, img_d, tab))
+    assert packed.shape == (tr.cap, 3)

@@ -1,6 +1,7 @@
 """The port's live host loop on the card: the float64 `UVioManager`, fed by
 the port's simulator from the first IMU sample, against the committed
-fixture that `uvio_tpu` captured; `_marginalize` with no host sync; and
+fixture that `uvio_tpu` captured; `_marginalize` replaying its graphs with
+no host sync; and
 `HostPipeline`'s side-stream staging. Skips without a CUDA device.
 
 Imports neither JAX nor `uvio_tpu`, so it runs on a machine with only
@@ -57,26 +58,32 @@ def test_live_float64_loop_matches_fixture(dev):
 
 def test_marginalize_passes_the_slot_without_a_sync(dev):
     """The clone slot reaches `anchor_change` and `marginalize_clone` as a
-    Python int: `_marginalize` (with 25 SLAM slots, anchored landmarks)
-    runs under `set_sync_debug_mode("error")`."""
+    pinned host tensor: once the first `_marginalize` has captured both
+    stages' graphs, the next (another slot, with 25 SLAM slots and
+    anchored landmarks) runs under `set_sync_debug_mode("error")`."""
     sim, mgr = bench_scenario(120, seed=7, max_slam=25, dtype="float64")
     drive(sim, mgr, 25)
-    t_cam = None
-    while t_cam is None:  # the IMU up to the next camera frame
-        t, w, a = sim.get_next_imu()
-        mgr.feed_imu(t, w, a)
-        if sim.cur_cam_t + 1.0 / sim.params.sim_freq_cam <= t:
-            t_cam = sim.get_next_cam()[0]
-    mgr._propagate_clone(t_cam)  # uploads its IMU window: not under test
     K = mgr.cfg.max_clones
-    assert len(mgr.slot_times) == K + 1 and int(mgr.state.slam_valid.sum()) > 0
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        mgr._marginalize(t_cam)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    assert len(mgr.slot_times) == K and int(mgr.state.clones_valid.sum()) == K
+    slots = []
+    for under_test in (False, True):
+        t_cam = None
+        while t_cam is None:  # the IMU up to the next camera frame
+            t, w, a = sim.get_next_imu()
+            mgr.feed_imu(t, w, a)
+            if sim.cur_cam_t + 1.0 / sim.params.sim_freq_cam <= t:
+                t_cam = sim.get_next_cam()[0]
+        mgr._propagate_clone(t_cam)  # uploads its IMU window: not under test
+        assert len(mgr.slot_times) == K + 1 and int(mgr.state.slam_valid.sum()) > 0
+        slots.append(min(mgr.slot_times, key=mgr.slot_times.get))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if under_test else 0)
+        try:
+            mgr._marginalize(t_cam)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert len(mgr.slot_times) == K and int(mgr.state.clones_valid.sum()) == K
+    assert slots[0] != slots[1]
+    assert mgr._stage_marg.stats()["graphs"] == mgr._stage_anchor_change.stats()["graphs"] == 1
 
 
 def test_host_pipeline_stages_on_a_side_stream(dev):

@@ -22,6 +22,14 @@ Hamming distance is taken on the 256 unpacked bits: exact integers
 either way. Distances tie often; a tie goes to the lowest index, as
 `jnp.argmin` resolves it and as `torch.argmin` on CUDA does not promise:
 the minimum is taken over `distance * N + index`.
+
+The device part of a `feed` (FAST-9, the grid, the descriptors and, after
+the first frame, the Hamming match, with the packing for the one
+read-back) is `step_first` and `step_match`, `uvio_tpu`'s `_jit_detect`
+and `_jit_match`: on the card each is captured once as a CUDA graph and
+replayed (`graphs.graphed`). RANSAC over the matched pairs, whose count
+only the host knows, runs eagerly, as it runs outside the jits in
+`uvio_tpu`.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch.nn.functional as F
 
 from ..cam import models as cam_models
 from ..device import resolve_device
+from ..graphs import graphed
 from .klt import fast_score, grid_detect, ransac_fundamental
 from .tracker import fetch, to_device
 
@@ -168,10 +177,9 @@ def hamming_match(d1, v1, d2, v2, ratio=0.75):
     ar1 = torch.arange(n1, device=dist.device)
 
     bestd, best2 = _first_argmin(dist, 1)
-    # second best for ratio test
-    d_wo = dist.clone()
-    d_wo[ar1, best2] = _BIG
-    second = d_wo.min(1).values
+    # second best for ratio test (a scatter of the Python value: an index
+    # assignment would lift it into a host tensor first)
+    second = dist.scatter(1, best2[:, None], _BIG).min(1).values
     ratio_ok = bestd < ratio * second
     # symmetry: 1's best in 2 must map back to 1
     _, best1_of_2 = _first_argmin(dist, 0)  # (N2,)
@@ -212,6 +220,9 @@ class DescriptorTracker:
         self.generator = generator
         if generator is None:
             self.generator = torch.Generator(device=self.device).manual_seed(1)
+        # the device part of `feed`, graphed (`.eager` is the plain one)
+        self.step_first = graphed(self._device_first, "DescriptorTracker first frame")
+        self.step_match = graphed(self._device_match, "DescriptorTracker matching")
 
     def _detect(self, img):
         score = fast_score(img, self.fast_thresh)
@@ -223,21 +234,35 @@ class DescriptorTracker:
         desc, ok2 = describe(img, uv, ok)
         return uv, desc, ok & ok2
 
+    def _device_first(self, img_d):
+        """A first frame's device part: (descriptors, valid, [uv | valid]
+        packed (G,3))."""
+        uv, desc, valid = self._detect(img_d)
+        return desc, valid, torch.cat([uv, valid[:, None].to(uv.dtype)], dim=1).to(torch.float32)
+
+    def _device_match(self, p_desc, p_valid, img_d):
+        """A later frame's device part: detection, then the match of the
+        previous frame's descriptors into this one's: (descriptors, valid,
+        [uv | valid | match] packed (G,4))."""
+        uv, desc, valid = self._detect(img_d)
+        m = hamming_match(p_desc, p_valid, desc, valid, ratio=self.knn_ratio)
+        cols = [uv, valid[:, None].to(uv.dtype), m[:, None].to(uv.dtype)]
+        return desc, valid, torch.cat(cols, dim=1).to(torch.float32)
+
     def feed(self, t: float, img: np.ndarray, gumbel: torch.Tensor = None):
         """Returns (ids (N,), uvs (N,2)) of this frame's valid corners,
         matched ones under their previous ids. `gumbel`, (64, 8, number
         of matched pairs), replaces the generator's draw in RANSAC."""
-        uv_d, desc, valid_d = self._detect(to_device(img, self.device))
-        n = uv_d.shape[0]
-        ids = np.full(n, -1, np.int64)
+        img_d = to_device(img, self.device)
         # one read-back: corners, their mask and (after the first frame)
         # the matches
-        cols = [uv_d, valid_d[:, None]]
-        if self.prev is not None:
+        if self.prev is None:
+            desc, valid_d, packed = self.step_first(img_d)
+        else:
             p_uv, p_desc, p_valid, p_ids = self.prev
-            m_d = hamming_match(p_desc, p_valid, desc, valid_d, ratio=self.knn_ratio)
-            cols.append(m_d[:, None])
-        host = fetch(torch.cat([c.to(torch.float32) for c in cols], dim=1))
+            desc, valid_d, packed = self.step_match(p_desc, p_valid, img_d)
+        host = packed.cpu().numpy()
+        ids = np.full(host.shape[0], -1, np.int64)
         uv, valid = host[:, :2].copy(), host[:, 2] != 0
         if self.prev is not None:
             m = host[:, 3].astype(np.int64)

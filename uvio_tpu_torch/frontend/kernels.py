@@ -15,7 +15,8 @@ A wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises. Each kernel launch adds
 one to `launch_counts[name]`, so a run can show that its main path went
 through the kernels; inside a CUDA graph (`graphs.graphed`) the launches
-recorded at the capture are added at each replay instead.
+recorded at the capture are added at each replay instead, and to
+`replay_counts[name]` too: the launches that came from graph replays.
 """
 
 from __future__ import annotations
@@ -29,11 +30,12 @@ _CIRCLE = [
 ]
 
 launch_counts = {"fast9": 0, "lk_level": 0, "lk_track": 0}
+replay_counts = dict(launch_counts)
 
 
 def reset_launch_counts():
     for k in launch_counts:
-        launch_counts[k] = 0
+        launch_counts[k] = replay_counts[k] = 0
 
 
 def _check(name, t, dtype, shape):

@@ -32,16 +32,19 @@ FAST, grid detection and the packing for the read-back) is
 `_device_first` on a tracker's first frame and `_device_track` after,
 `uvio_tpu`'s jitted `_device_step`; on the card each is captured once as
 a CUDA graph and replayed (`graphs.graphed`, the port's `jax.jit` of
-`_build_step`). `_fit_levels` fixes the pyramid before either is
-captured. The host keeps the ids (`_spawn`, `_emit`), uploads the frame
+`_build_step`). `stereo_match`'s device part (the right image's pyramid
+and LK from the left pyramid) is `step_stereo`, graphed the same way on
+a table padded to the tracker's capacity, so one graph serves every
+track count; `uvio_tpu` runs it op by op. `_fit_levels` fixes the
+pyramid before any is captured. The host keeps the ids (`_spawn`, `_emit`), uploads the frame
 and the track table, draws RANSAC's noise from the generator (an input
 of the graph, so the draws are the eager path's) and, with
 `histeq="CLAHE"`, equalizes on the host through cv2 before the upload.
 
 On CUDA tensors one `feed` launches the `fast9` kernel once and the
-`lk_track` kernel once, inside the graph (`kernels.launch_counts`
-counts them at each replay); on the CPU the wrappers take their plain
-versions.
+`lk_track` kernel once, and `stereo_match` `lk_track` once, inside the
+graphs (`kernels.launch_counts` counts them at each replay); on the CPU
+the wrappers take their plain versions.
 """
 
 from __future__ import annotations
@@ -135,6 +138,7 @@ class KLTTracker:
         # the device part of `feed`, graphed (`.eager` is the plain one)
         self.step_first = graphed(self._device_first, "KLTTracker first frame")
         self.step_track = graphed(self._device_track, "KLTTracker tracking")
+        self.step_stereo = graphed(self._device_stereo, "KLTTracker stereo match")
 
     def _fit_levels(self, img_shape):
         # coarsest pyramid level must still contain the LK window
@@ -219,6 +223,14 @@ class KLTTracker:
                             torch.cat([det_uv, det_ok[:, None]], dim=1)])
         return pyr, packed.to(torch.float32)
 
+    def _device_stereo(self, pyr_left, img_d, tab):
+        """The device part of `stereo_match`: the right image's pyramid, LK
+        from `pyr_left` for the table's points, [uv_right | ok] (N,3)."""
+        _, pyr_right = self._prepare(img_d)
+        uv, valid = self._columns(tab)
+        uv_r, ok = lk_track(pyr_left, pyr_right, uv, valid, half=self.half)
+        return torch.cat([uv_r, ok[:, None]], dim=1).to(torch.float32)
+
     # -- host side ------------------------------------------------------
     def feed(self, t: float, img: np.ndarray, gumbel: torch.Tensor = None):
         """Process one image; returns (ids (N,), uvs (N,2)) of active
@@ -250,17 +262,17 @@ class KLTTracker:
         left positions seed the right-image search; failures masked.
         `pyr_left`, the left image's pyramid where the caller has it
         (then `img_left` is not read), else it is built here.
+        The N points go in padded with invalid rows to the tracker's
+        capacity (LK treats each point alone, so the real rows are those of
+        the unpadded call) and come back in one read-back.
         Returns (uv_right (N,2), ok (N,))."""
         if pyr_left is None:
             _, pyr_left = self._preprocess(img_left)
-        _, pyr_right = self._preprocess(img_right)
-        tab = to_device(
-            np.concatenate([np.asarray(uv_left), np.asarray(valid)[:, None]], axis=1), self.device
-        )
-        uv_r, ok = lk_track(
-            pyr_left, pyr_right, tab[:, :2].contiguous(), tab[:, 2] != 0, half=self.half
-        )
-        host = fetch(torch.cat([uv_r, ok[:, None]], dim=1))
+        n = len(uv_left)
+        tab = np.zeros((max(n, self.cap), 3), np.float32)
+        tab[:n, :2] = uv_left
+        tab[:n, 2] = valid
+        host = self.step_stereo(pyr_left, self._upload(img_right), to_device(tab, self.device)).cpu().numpy()[:n]
         return host[:, :2].copy(), host[:, 2] != 0
 
     def _spawn(self, det_uv, det_ok):

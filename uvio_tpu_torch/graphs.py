@@ -38,7 +38,8 @@ inputs meanwhile (`pipeline.HostPipeline`) does not break it.
 The hand kernels' wrappers count their launches when they run
 (`frontend/kernels.py` `launch_counts`). Under capture they run once and
 launch nothing, so the counts a capture adds are taken back and each
-replay adds them again: the counts stay the launches the card made.
+replay adds them again (and to `replay_counts`): the counts stay the
+launches the card made.
 """
 
 from __future__ import annotations
@@ -54,31 +55,53 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from .frontend import kernels
 
 
+# bytes between the starts of two tensors in a packed buffer: the
+# alignment of a fresh allocation of PyTorch's CUDA caching allocator
+ALIGN = 512
+
+
 class Packer:
     """Tensors of fixed shapes and dtypes as views of one flat buffer per
-    dtype: `pack` copies tensors in, `unpack` gives the views."""
+    dtype: `pack` copies tensors in, `unpack` gives the views.
+
+    Each view starts a multiple of `ALIGN` bytes into its buffer, which
+    is itself a fresh allocation, so it is aligned as one: kernels choose their code by the alignment of their
+    operands (cuBLAS among them), so a view at another offset can round
+    otherwise than the eager step's freshly allocated tensor."""
 
     def __init__(self, tensors):
         self.shapes = [t.shape for t in tensors]
         self.groups: Dict[torch.dtype, List[int]] = {}
         for i, t in enumerate(tensors):
             self.groups.setdefault(t.dtype, []).append(i)
+        # per dtype: the padded length of each tensor's slot, in elements
+        self.slots = {dt: [-(-self.shapes[i].numel() * dt.itemsize // ALIGN) * ALIGN // dt.itemsize
+                           for i in idx] for dt, idx in self.groups.items()}
+        self._pad = {}  # dtype -> a zero buffer the padding is cut from
 
     def pack(self, tensors, out=None):
         """{dtype: flat buffer} holding `tensors`, one `torch.cat` per
         dtype; into the buffers of `out` when given."""
         flats = {}
         for dt, idx in self.groups.items():
-            parts = [tensors[i].reshape(-1) for i in idx]
+            parts = []
+            for i, slot in zip(idx, self.slots[dt]):
+                t = tensors[i].reshape(-1)
+                parts.append(t)
+                if slot > t.numel():
+                    pad = self._pad.get(dt)
+                    if pad is None or pad.device != t.device:
+                        pad = self._pad[dt] = t.new_zeros(ALIGN // dt.itemsize)
+                    parts.append(pad[: slot - t.numel()])
             flats[dt] = torch.cat(parts) if out is None else torch.cat(parts, out=out[dt])
         return flats
 
     def unpack(self, flats):
         out = [None] * len(self.shapes)
         for dt, idx in self.groups.items():
-            parts = torch.split(flats[dt], [self.shapes[i].numel() for i in idx])
+            parts = torch.split(flats[dt], self.slots[dt])
             for i, p in zip(idx, parts):
-                out[i] = p.view(self.shapes[i])
+                out[i] = p[: self.shapes[i].numel()].view(self.shapes[i])
         return out
 
 
@@ -138,6 +161,7 @@ class Graphed:
         entry.graph.replay()
         for k, n in entry.launches.items():
             kernels.launch_counts[k] += n
+            kernels.replay_counts[k] += n
         return entry.results({dt: f.clone() for dt, f in entry.out_flats.items()})
 
     def stats(self) -> dict:

@@ -56,8 +56,17 @@ On the card every factory's step is `uvio_tpu`'s `jax.jit` counterpart:
 `graphs.graphed`, one CUDA graph captured per static key (the plan's
 bools, the batch's union plan, the input shapes and dtypes) and replayed
 after; `step.eager` is the plain step, and `full_filter_step` and
-`filter_step` stay the plain functions. A batched step given a process
-group runs eagerly (a gloo collective cannot be captured).
+`filter_step` stay the plain functions. So are the managers' staged
+stages, UWB drain and IMU-rate pose output (`manager._stage`) and the
+trackers' device steps (`frontend/tracker.py`, `frontend/descriptor.py`).
+What stays eager on the card, and why:
+
+| step | where | why |
+|---|---|---|
+| `augment_clone` of the in-motion init | `manager.py` `_try_dynamic_init` | once per init: a graph would be captured and never replayed (`uvio_tpu`'s `_jit_clone_only`) |
+| the init replays' propagate+clone and marginalization | `_try_static_init`, `_try_dynamic_init`: `_propagate_clone` / `_marginalize` with `eager=True` | at most a window of frames, once: a capture costs two to three eager frames a key, and none lands at the moment the filter starts |
+| RANSAC over the descriptor matches and over the left<->right stereo matches | `frontend/descriptor.py`, `frontend/stereo.py` `feed` | the number of pairs is known only on the host (both run outside `uvio_tpu`'s jits too) |
+| the batched steps given a process group | `make_batched_step`, `make_batched_full_step` | a gloo collective cannot be captured |
 """
 
 from __future__ import annotations

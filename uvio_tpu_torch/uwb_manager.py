@@ -14,12 +14,15 @@ Port of `uvio_tpu/uwb_manager.py` (the reference's
     cloning (`UVioPropagator`) + per-range chi2-gated single update
     (`do_uwb_propagate_update`, `UVioManager.cpp:308-344`): inside the
     frame's step for up to `max_uwb_sets_per_frame` sets, and set by set
-    from the host when more are buffered.
+    from the host on the staged path or when more are buffered, each set
+    one replay of the graphed `_stage_prop_only` and one of `_stage_uwb`
+    (`uvio_tpu`'s `_jit_prop_only` and `_jit_uwb`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -27,7 +30,7 @@ import torch
 
 from .filter.ekf import set_block_covariance
 from .filter.propagator import propagate_mean_cov
-from .manager import VioConfig, VioManager
+from .manager import VioConfig, VioManager, _stage
 from .update.uwb import uwb_update
 from .utils.logger import print_warning
 
@@ -78,6 +81,11 @@ class UVioManager(VioManager):
         self.uwb_buffer: List = []  # (t, {aid: dist})
         self._last_uwb_t = -np.inf
         self.anchors_initialized = False
+        self._stage_prop_only = _stage(partial(propagate_mean_cov, layout=self.layout, noises=cfg.noises,
+                                               gravity_mag=cfg.gravity_mag, integration=cfg.integration),
+                                       "propagate_mean_cov")
+        self._stage_uwb = _stage(partial(uwb_update, layout=self.layout, sigma_range=cfg.sigma_range,
+                                         chi2_mult=cfg.uwb_chi2_mult), "uwb_update")
         if cfg.anchors:
             self.initialize_anchors(cfg.anchors)
 
@@ -200,7 +208,6 @@ class UVioManager(VioManager):
         """Drain buffered UWB sets older than the image, each by
         propagate-without-clone + per-range updates."""
         A = self.ucfg.max_anchors
-        cfg = self.ucfg
         remaining = []
         for (t_u, ranges) in self.uwb_buffer:
             # strictly older than the image (UVioManager.cpp:178-188);
@@ -213,11 +220,7 @@ class UVioManager(VioManager):
                 # reference's UVioPropagator shares last_prop_time_offset
                 # with the base propagator (UVioPropagator.cpp:80-100)
                 tt, ww, aa, dt_now = self._select_imu_window(t_u)
-                tt, ww, aa, stamp = self._window(tt, ww, aa, t_u)
-                self.state, _ = propagate_mean_cov(
-                    self.state, self.layout, tt, ww, aa, cfg.noises, cfg.gravity_mag,
-                    integration=self.integration, stamp_time=stamp,
-                )
+                self.state, _ = self._stage_prop_only(self.state, **self._window(tt, ww, aa, t_u))
                 self._time_host = float(t_u)
                 self._last_prop_dt = dt_now
             r = np.zeros(A)
@@ -226,9 +229,6 @@ class UVioManager(VioManager):
                 slot = self.anchor_slot_by_id[aid]
                 r[slot] = dist
                 m[slot] = True
-            self.state, info = uwb_update(
-                self.state, self.layout, self._on(r), self._on(m, torch.bool),
-                sigma_range=cfg.sigma_range, chi2_mult=cfg.uwb_chi2_mult,
-            )
+            self.state, info = self._stage_uwb(self.state, ranges=self._host(r), range_mask=self._host(m, torch.bool))
             self.last_uwb_info = info
         self.uwb_buffer = remaining
