@@ -91,7 +91,8 @@ Phases, each printing one JSON line:
               `feed`'s launches) under the same gates (>= 100 initialized
               frames, ATE < 0.15 m and < 2.5 deg, cov_ok at every stage);
               printed: its ATE beside the fused one, the mean of each
-              `last_timing` stage, host syncs per staged frame on 5 frames,
+              `last_timing` stage (built with tracing on: the device ms of
+              the stage's graph replays), host syncs per staged frame on 5 frames,
               the largest position difference between the two, and per
               graphed stage its graphs beside the input shapes it met (gated:
               no more graphs than shapes, so none per slot value).
@@ -164,7 +165,8 @@ Phases, each printing one JSON line:
               MSCKF, SLAM and UWB decision equal, position within 1e-6 m and
               trace(cov) within 1e-6 relative on every frame, no stage with
               more graphs than input shapes; printed: the mean of each
-              stage, host syncs on the last 5 frames, graphs and shapes by
+              stage (the device ms of its graph replays: the manager is
+              built with tracing on), host syncs on the last 5 frames, graphs and shapes by
               stage. None of it runs a hand kernel.
  14. batch  — B independent sequences through one batched full step
               (`pipeline.make_batched_full_step`, `torch.func.vmap` of the
@@ -1247,8 +1249,21 @@ def spy_stages(mgr, shapes):
                                                       if isinstance(t, torch.Tensor)))
             return _stage(*args, **kwargs)
 
-        call.eager, call.graphed = stage.eager, stage
+        call.eager, call.graphed, call.take_timed = stage.eager, stage, stage.take_timed
         setattr(mgr, name, call)
+
+
+def traced(make):
+    """`make()` with the port's tracing on while it builds, so a staged
+    manager's `last_timing` stages take the device ms of their graphs'
+    replays (`uvio_tpu_torch/tracing.py`)."""
+    from uvio_tpu_torch import tracing
+
+    tracing.enable()
+    try:
+        return make()
+    finally:
+        tracing.enable(False)
 
 
 def stage_graphs(mgr, shapes):
@@ -1378,7 +1393,7 @@ def tracker_mono_hard(K, card):
             cameras=[CameraConfig(model=cam.model, intrinsics=cam.intrinsics, q_ItoC=cam.q_ItoC,
                                   p_IinC=cam.p_IinC)], fused_step=fused_step))
 
-    mgr, staged = make_mgr(True), make_mgr(False)
+    mgr, staged = make_mgr(True), traced(lambda: make_mgr(False))
     staged_shapes = {}
     spy_stages(staged, staged_shapes)
     cov_ok = hooked_cov_ok(mgr)
@@ -2448,7 +2463,8 @@ def backend_staged_fixture(card):
                                          staged_record)
 
     ref = load_staged_fixture()
-    sim, mgr = bench_scenario(STAGED_WARM + 100, seed=7, max_slam=25, dtype="float64", fused_step=False)
+    sim, mgr = traced(lambda: bench_scenario(STAGED_WARM + 100, seed=7, max_slam=25, dtype="float64",
+                                             fused_step=False))
     if mgr.device != torch.device("cuda:0"):
         raise RuntimeError(f"the manager runs on {mgr.device}")
     shapes = {}

@@ -7,7 +7,9 @@ landmark cloud, then perturbed): N=12, L=64 and N=24, L=256.
 Tolerances: the same Gauss-Newton pieces, Schur complement and Cholesky
 solve in both packages, summed in different orders, so the per-iteration
 costs and the final poses and landmarks agree to 1e-8 relative; every
-accept/reject decision is the same (the cost sequence shows it). Padding
+accept/reject decision is the same (the cost sequence shows it), but for
+a step shorter than the port's `_STEP_TOL` (1e-8), which `uvio_tpu` may
+take and the port does not. Padding
 is held exactly: padded landmark rows and the positions of invalid
 keyframe slots return their inputs bit for bit (their quaternions up to
 the rounding of the renormalization every update applies, 1e-15).
@@ -22,6 +24,7 @@ from tests.test_ba import make_scene, perturb, reproj_rmse
 from uvio_tpu.parallel.ba import BAOptions as JOpts
 from uvio_tpu.parallel.ba import ba_solve as j_solve
 
+import uvio_tpu_torch.parallel.ba as port_ba
 from uvio_tpu_torch.parallel.ba import BAOptions, _inv3, ba_solve
 
 torch.set_num_threads(1)
@@ -73,6 +76,28 @@ def test_ba_converges_to_the_scene():
     qs, ps, lms, _ = ba_solve(_t(q0), _t(p0), _t(lm0), _t(obs), _t(mask, torch.bool), BAOptions(iters=15))
     assert reproj_rmse(qs.numpy(), ps.numpy(), lms.numpy(), obs, mask) < 0.05 * reproj_rmse(q0, p0, lm0, obs, mask)
     assert np.linalg.norm(ps.numpy() - p, axis=1).max() < 0.02
+
+
+def test_steps_below_step_tol_are_not_taken(monkeypatch):
+    """A step shorter than `_STEP_TOL` is not taken: under a tolerance
+    above every step the solve returns its inputs bit for bit, and so does
+    the 1e-8 it holds from a converged solve, whose steps change the cost
+    by less than its rounding."""
+    q, p, lm, obs, mask = make_scene()
+    q0, p0, lm0 = perturb(q, p, lm)
+    obs, mask = _t(obs), _t(mask, torch.bool)
+    start = (_t(q0), _t(p0), _t(lm0))
+    with monkeypatch.context() as m:
+        m.setattr(port_ba, "_STEP_TOL", 10.0)
+        held = ba_solve(*start, obs, mask, BAOptions(iters=4))
+    for got, x in zip(held[:3], start):
+        assert torch.equal(got, x)
+    assert torch.equal(held[3]["costs"], held[3]["costs"][:1].expand(4))
+    assert port_ba._STEP_TOL == 1e-8
+    done = ba_solve(*start, obs, mask, BAOptions(iters=15))[:3]
+    again = ba_solve(*done, obs, mask, BAOptions(iters=4))
+    for got, x in zip(again[:3], done):
+        assert torch.equal(got, x)
 
 
 def test_landmark_padding_is_inert():

@@ -40,10 +40,19 @@ The hand kernels' wrappers count their launches when they run
 launch nothing, so the counts a capture adds are taken back and each
 replay adds them again (and to `replay_counts`): the counts stay the
 launches the card made.
+
+With tracing on (`tracing.enable()` before the callable is made) a
+capture keeps the device marks its body records (`tracing.mark`) with its
+graph, and each replay records a timing event before and after the
+graph: `take_timed()` hands over (before, marks, after) of the replays
+since it was last called, for `tracing.stage_ms` once the stream has
+been waited for. Off, a replay records nothing.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import time
@@ -52,6 +61,7 @@ from typing import Any, Callable, Dict, List
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from . import tracing
 from .frontend import kernels
 
 
@@ -119,6 +129,7 @@ class _Entry:
     out_leaves: list  # the output leaves, tensors as None
     out_spec: Any
     launches: Dict[str, int]  # hand-kernel launches recorded in the graph
+    marks: list  # (name, event) of the device marks in the graph, traced
     warmup_ms: float
     capture_ms: float
     pool_bytes: int
@@ -138,13 +149,23 @@ class Graphed:
     """`fn` as a callable that captures and replays CUDA graphs (module
     docstring). `eager` is `fn` itself, for comparisons; `entries` holds
     one record a captured key (its warm-up and capture ms, the bytes its
-    graph's memory pool holds, the hand-kernel launches it replays)."""
+    graph's memory pool holds, the hand-kernel launches it replays).
+    `last_capture_ms` is the warm-up + capture ms of the last call, 0 for
+    a replay; `trace` is the tracing switch as it was when the callable
+    was made (module docstring)."""
+
+    # replays whose events are kept until taken: enough for one frame's
+    # calls of any stage, and a bound for callables nobody takes from
+    TIMED = 64
 
     def __init__(self, fn: Callable, name: str = None):
         self.eager = fn
         self.name = name or getattr(fn, "__qualname__", None) or repr(fn)
         self.entries: Dict[Any, _Entry] = {}
         self._stream = None
+        self.trace = tracing.enabled()
+        self.timed = collections.deque(maxlen=self.TIMED)
+        self.last_capture_ms = 0.0
 
     def __call__(self, *args, **kwargs):
         leaves, spec = tree_flatten((args, kwargs))
@@ -157,12 +178,27 @@ class Graphed:
         entry = self.entries.get(key)
         if entry is None:
             return self._capture(key, leaves, spec, tensors, device)
+        self.last_capture_ms = 0.0
         entry.load(tensors)
-        entry.graph.replay()
+        if self.trace:
+            before, after = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            before.record()
+            entry.graph.replay()
+            after.record()
+            self.timed.append((before, entry.marks, after))
+        else:
+            entry.graph.replay()
         for k, n in entry.launches.items():
             kernels.launch_counts[k] += n
             kernels.replay_counts[k] += n
         return entry.results({dt: f.clone() for dt, f in entry.out_flats.items()})
+
+    def take_timed(self) -> list:
+        """(before, marks, after) of each replay since the last call,
+        oldest first (traced only; module docstring)."""
+        out = list(self.timed)
+        self.timed.clear()
+        return out
 
     def stats(self) -> dict:
         """Graphs captured, their warm-up and capture ms summed, the bytes
@@ -216,8 +252,11 @@ class Graphed:
             t0 = time.perf_counter()
             collecting = gc.isenabled()
             gc.disable()
+            # traced: the marks the body records become event nodes of the graph
+            marking = tracing.collect_marks() if self.trace else contextlib.nullcontext([])
             try:
-                with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+                with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"), \
+                        marking as marks:
                     cap_leaves, cap_spec = tree_flatten(self.eager(*args, **kwargs))
                     cap_tensors = [x for x in cap_leaves if isinstance(x, torch.Tensor)]
                     out_flats = outputs.pack(cap_tensors)
@@ -234,9 +273,10 @@ class Graphed:
                 raise RuntimeError(f"{self.name}: the captured run returned another structure than "
                                    "the eager run of the same key")
             entry = _Entry(graph, dev_idx, inputs, in_flats, host, outputs, out_flats, consts, out_spec,
-                           {k: n for k, n in launches.items() if n}, warmup_ms, capture_ms,
+                           {k: n for k, n in launches.items() if n}, marks, warmup_ms, capture_ms,
                            torch.cuda.memory_reserved(device) - reserved)
             self.entries[key] = entry
+            self.last_capture_ms = warmup_ms + capture_ms
             return entry.results(first)
 
 

@@ -22,16 +22,22 @@ The staged path (`fused_step=False`) calls each stage on its own
 (`_stage_*`, `uvio_tpu`'s `_jit_*`: each one graphed callable, on the card
 one replay of a CUDA graph captured once per input shape, `_stage`) and
 reads each stage's decisions back before the next, as `uvio_tpu`'s staged
-path does; it times every stage (`last_timing`, synchronizing the card
-between stages). A stage's inputs from the host (IMU windows, padded
-observations, slots) go in as host tensors, pinned on the card, which the
-replay copies into the graph without waiting; a slot is a tensor, so one
-graph serves every slot value.
+path does; it times every stage (`last_timing`: host times, or with
+tracing on the device times of each stage's graph replays). A stage's
+inputs from the host (IMU windows, padded observations, slots) go in as
+host tensors, pinned on the card, which the replay copies into the graph
+without waiting; a slot is a tensor, so one graph serves every slot value.
 
 The clone window uses `max_clones + 1` ring slots: the reference lets the
 window grow to N+1 between `augment_clone` and the end-of-update
 marginalization (`VioManager.cpp:584-597`); the extra slot gives the same
 semantics with static shapes.
+
+Each frame leaves its timing row in `last_timing` (`_record_fused_timing`,
+`_frame_staged`): host spans by `time.perf_counter` and, with tracing on
+(`tracing.py`, read once when the manager is built), the same spans as
+`uvio/<name>` ranges on the profiler's clock and the device ms of the
+frame's graphs.
 """
 
 from __future__ import annotations
@@ -57,7 +63,8 @@ from .filter.propagator import (
 )
 from .frontend.database import FeatureDatabase
 from .frontend.fused_vio import check_full_precision
-from .graphs import graphed
+from . import tracing
+from .graphs import Graphed, graphed
 from .init.dynamic_init import DynamicInitOptions, result_to_state_first, solve_dynamic_init
 from .init.static_init import StaticInitOptions, try_static_init
 from .math import quat_to_rot
@@ -200,6 +207,23 @@ class CovarianceError(RuntimeError):
 # frames between the deferred covariance checks of the async path
 _ASYNC_CHECK_EVERY = 32
 
+# the staged path's stages: (timing CSV column, device stage, the graphed
+# stages it replays)
+_STAGED = (
+    ("uwb", "uwb_drain", ("_stage_prop_only", "_stage_uwb")),
+    ("propagation", "propagate_clone", ("_stage_prop",)),
+    ("msckf", "msckf", ("_stage_msckf",)),
+    ("slam", "slam", ("_stage_slam_up", "_stage_slam_init", "_stage_marg_slam")),
+    ("marginalization", "marginalize", ("_stage_anchor_change", "_stage_marg")),
+)
+
+
+def _take_timed(g) -> list:
+    """The timed replays of a graphed callable since last taken
+    (`graphs.Graphed.take_timed`); none for a plain function."""
+    take = getattr(g, "take_timed", None)
+    return take() if take is not None else []
+
 
 class VioManager:
     def _layout_extras(self) -> dict:
@@ -274,6 +298,13 @@ class VioManager:
         self._head = -1
         self.last_timing = None
         self._timing_file = None
+        # the tracing switch, read once (`tracing.py`): spans on the
+        # profiler's clock and the device ms of the graphs in the row
+        self.tracing = tracing.enabled()
+        self._span = tracing.span_for(self.tracing)
+        # host clock at `feed_features`' entry, at the end of the fused
+        # step's plan and at its read-back, for the frame's row
+        self._t_start = self._t_planned = self._t_read = 0.0
         # traveled distance since initialization, accumulated per visual
         # update (`VioManager.cpp:646-650`); gates UWB ingestion
         # (UVioManager.cpp:64-67 `distance > min_dist_to_use_uwb`)
@@ -362,8 +393,11 @@ class VioManager:
         def full(state, fields):
             """One frame: `fields` is the numpy bundle keyed by
             `FrameBundle` field; the plan reads the host's state time."""
-            plan = plan_frame(fields, self._time_host)
-            return self.full_step(state, *pack_bundle(fields, self.device), plan)
+            with self._span("plan"):
+                plan = plan_frame(fields, self._time_host)
+            self._t_planned = _time.perf_counter()
+            with self._span("pack"):
+                return self.full_step(state, *pack_bundle(fields, self.device), plan)
 
         # the seam that `eval.capture` hooks to record the bundles
         self._jit_full = full
@@ -699,28 +733,41 @@ class VioManager:
         cam_obs: per camera, (ids (N,), uvs (N,2)): the TrackSIM path
         (`feed_measurement_simulation`); a real frontend feeds the same.
         """
+        self._t_start = _time.perf_counter()
+        with self._span("frame"):
+            with self._span("ingest"):
+                if not self._ingest(t, cam_obs):
+                    return
+            if self.cfg.fused_step:
+                self._frame_fused(t)
+                # the row's last span runs from the read-back to here: the
+                # bookkeeping, the frame's last mirrors, its locals released
+                self.last_timing["post"] = _time.perf_counter() - self._t_read
+                return
+            if self.cfg.try_zupt and self._try_zupt(t):
+                self._last_frame_t = t
+                return  # motion frozen: no clone, no visual update this frame
+            self._frame_staged(t)
+
+    def _ingest(self, t: float, cam_obs) -> bool:
+        """The frame's features into the database, then initialization
+        and the out-of-order check: whether the frame goes on to a step."""
         for cam, (ids, uvs) in enumerate(cam_obs):
             for i, fid in enumerate(ids):
                 self.db.update_feature(int(fid), t, cam, float(uvs[i, 0]), float(uvs[i, 1]))
         if not self.is_initialized:
             if self.cfg.use_static_init and self._try_static_init():
-                return
+                return False
             if self.cfg.use_dynamic_init:
                 self._try_dynamic_init(t)
-            return
+            return False
         if t <= self._time_host:
             # out-of-order frame: warn + drop (`VioManager.cpp:329-334`)
             print_warning(
                 "image at t=%.6f is older than state time %.6f: dropped", t, self._time_host
             )
-            return
-        if self.cfg.fused_step:
-            self._frame_fused(t)
-            return
-        if self.cfg.try_zupt and self._try_zupt(t):
-            self._last_frame_t = t
-            return  # motion frozen: no clone, no visual update this frame
-        self._frame_staged(t)
+            return False
+        return True
 
     def _track_distance(self, p: np.ndarray):
         """Accumulate traveled distance after a completed visual update
@@ -748,6 +795,35 @@ class VioManager:
         `pipeline.full_filter_step`, then update the host mirrors from the
         returned infos (`do_feature_propagate_update` + UWB drain + ZUPT)."""
         t0h = _time.perf_counter()
+        with self._span("build"):
+            fields, frame = self._build_fields(t)
+        t1h = self._t_planned = _time.perf_counter()
+
+        # ---- the device step -------------------------------------------
+        cfg = self.cfg
+        fetched = None
+        with self._span("step"):
+            self.state, infos = self._jit_full(self.state, fields)
+            t_enq = _time.perf_counter()
+            # async mode: no host decision depends on this frame's device
+            # results, so nothing is read back and the host goes on to build
+            # the next bundle while the device works
+            if not (cfg.async_dispatch and self.layout.max_slam == 0 and not cfg.try_zupt
+                    and self._async_eligible()):
+                with self._span("readback"):
+                    fetched = self._fetch(infos)
+        t2h = self._t_read = _time.perf_counter()
+
+        with self._span("post"):
+            post_s = self._post_fused(t, infos, frame, fetched, t2h)
+        # async, nothing waited for the device: its ms are not read
+        self._record_fused_timing(t, t1h - t0h, t2h - t1h, post_s, (self._t_start, t0h, t1h, t_enq, t2h),
+                                  fetched is not None)
+
+    def _build_fields(self, t: float):
+        """The fused frame's host half: the padded FrameBundle's numpy
+        fields, and what the bookkeeping after the step needs of the frame
+        (`_post_fused`)."""
         L, cfg = self.layout, self.cfg
         K, S = L.max_clones, L.max_slam
         M = L.max_imu_batch
@@ -862,16 +938,19 @@ class VioManager:
             marg_enable=np.bool_(marg_enable),
             marg_slot=np.int32(marg_slot),
         )
-        t1h = _time.perf_counter()
+        return fields, (sets, dt_now, feats, zupt_try, saved_slots, saved_head, marg_enable, marg_slot, marg_t,
+                        slam_any_obs, slots_c, fids_c)
 
-        # ---- the device step -------------------------------------------
-        self.state, infos = self._jit_full(self.state, fields)
-
-        # async mode: no host decision depends on this frame's device
-        # results, so nothing is read back and the host goes on to build
-        # the next bundle while the device works
-        if cfg.async_dispatch and S == 0 and not cfg.try_zupt and self._async_eligible():
-            t2h = _time.perf_counter()
+    def _post_fused(self, t: float, infos, frame, fetched, t2h: float) -> float:
+        """The host mirrors after the fused step, from its infos and the
+        frame's read-back `fetched` (None on the async path, which reads
+        nothing back). Returns the seconds from the read-back (`t2h`) to
+        the end of the bookkeeping, the row's `marginalization`: 0 when
+        ZUPT froze the frame."""
+        cfg, S = self.cfg, self.layout.max_slam
+        (sets, dt_now, feats, zupt_try, saved_slots, saved_head, marg_enable, marg_slot, marg_t,
+         slam_any_obs, slots_c, fids_c) = frame
+        if fetched is None:
             self._async_since_check += 1
             if self._async_since_check >= _ASYNC_CHECK_EVERY:
                 # check this frame's flag for all since the last check: cov
@@ -898,13 +977,12 @@ class VioManager:
                 self.slot_times.pop(marg_slot, None)
                 self.db.cleanup_older_than(marg_t + 1e-9)
             self._trim_imu(t)
-            self._record_fused_timing(t, t1h - t0h, t2h - t1h, _time.perf_counter() - t2h)
+            post_s = _time.perf_counter() - t2h
             self._last_frame_t = t
             self._time_host = float(t)
-            return
+            return post_s
 
-        z_acc, cov_ok, failed, inited, p, calib_dt = self._fetch(infos)
-        t2h = _time.perf_counter()
+        z_acc, cov_ok, failed, inited, p, calib_dt = fetched
 
         if cfg.try_zupt and zupt_try and not z_acc:
             self._has_moved = True
@@ -915,8 +993,7 @@ class VioManager:
             self._last_prop_dt = dt_now
             self.db.cleanup_older_than(t + 1e-9)
             self._last_frame_t = t
-            self._record_fused_timing(t, t1h - t0h, t2h - t1h, 0.0)
-            return
+            return 0.0
 
         self._check_cov_ok(cov_ok, "fused frame step")
         self.last_msckf_info = infos["msckf"]
@@ -941,30 +1018,29 @@ class VioManager:
             self.db.cleanup_older_than(marg_t + 1e-9)
 
         self._trim_imu(t)
-        self._record_fused_timing(t, t1h - t0h, t2h - t1h, _time.perf_counter() - t2h)
+        post_s = _time.perf_counter() - t2h
         self._last_frame_t = t
         self._time_host = float(t)
         self._track_distance(p)
+        return post_s
 
     def _frame_staged(self, t: float):
         """One frame of the staged path (`uvio_tpu`'s non-fused branch of
         `feed_features`): each stage is its own call, and the host reads
-        its decisions back before the next. On a CUDA device the card is
-        synchronized after each stage, so the `last_timing` row times the
-        stage and not its launch."""
-        sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" else (lambda: None)
+        its decisions back before the next. The `last_timing` row times
+        each stage on the host clock: its launch and its own read-backs,
+        since nothing waits for the card between stages. Traced, a stage
+        whose graphs replayed in the frame takes their device time instead
+        (`device`, ms, read after the frame's last read-back)."""
         t0 = _time.perf_counter()
         self._pre_visual_update(t)
         t1 = _time.perf_counter()
         self._propagate_clone(t)
-        sync()
         t2 = _time.perf_counter()
         self._msckf_step(t)
-        sync()
         t3 = _time.perf_counter()
         if self.cfg.max_slam > 0:
             self._slam_step(t)
-            sync()
         t4 = _time.perf_counter()
         self._marginalize(t)
         t5 = _time.perf_counter()
@@ -973,9 +1049,9 @@ class VioManager:
         host = torch.cat([self.state.p, self.state.calib_dt.reshape(1)]).cpu().numpy()
         if self.cfg.calib_cam_timeoffset:
             self._dt_host = float(host[3])
-        # per-stage wall times (the reference's timing CSV,
+        # per-stage times (the reference's timing CSV,
         # VioManager.cpp:604-644); seconds per stage
-        self._record_timing({
+        row = {
             "timestamp": t,
             "uwb": t1 - t0,
             "propagation": t2 - t1,
@@ -983,7 +1059,15 @@ class VioManager:
             "slam": t4 - t3,
             "marginalization": t5 - t4,
             "total": t5 - t0,
-        })
+        }
+        if self.tracing:
+            dev = self._staged_device_ms()
+            if dev:
+                row["device"] = dev
+            for col, stage, _ in _STAGED:
+                if stage in dev:
+                    row[col] = dev[stage] / 1e3
+        self._record_timing(row)
         self._last_frame_t = t
         self._time_host = float(t)
         self._track_distance(host[:3].astype(np.float64))
@@ -1124,13 +1208,26 @@ class VioManager:
             f.to_delete = True
         self.db.cleanup()
 
-    def _record_fused_timing(self, t, build_s, device_s, post_s):
+    def _record_fused_timing(self, t, build_s, device_s, post_s, stamps, waited: bool):
         """Per-frame timing, in seconds, under the staged CSV's columns:
         uwb <- host bundle build, propagation <- the device step (dispatch
         to the frame's one read-back; dispatch alone on the async path),
-        msckf/slam <- 0 (inside the step), marginalization <- host
-        bookkeeping."""
-        self._record_timing({
+        msckf/slam <- 0 (inside the step; traced, the device time of the
+        graph's MSCKF and SLAM stages), marginalization <- host
+        bookkeeping. Beside them the frame's spans, host clock, s:
+        `t_start` (the clock at `feed_features`' entry), `ingest` (the
+        feature database and the checks before the frame), `build`,
+        `step` = `plan` + `pack` (the bundle packed, the graph's inputs
+        copied and the graph enqueued, to the graphed call's return) +
+        `readback` (to the frame's read-back), `post` (from the read-back
+        to `feed_features`' return, which sets it: `marginalization` and
+        what follows it), so that they add up to the frame's time from
+        `t_start` to its return; `capture_ms`, the warm-up + capture ms
+        when the frame's plan was new, else 0; and, traced and read back,
+        `device`: ms of the replayed graph (`graph`) and of each stage it
+        marks (`tracing.stage_ms`)."""
+        t_start, t0h, t1h, t_enq, t2h = stamps
+        row = {
             "timestamp": t,
             "uwb": build_s,
             "propagation": device_s,
@@ -1138,7 +1235,43 @@ class VioManager:
             "slam": 0.0,
             "marginalization": post_s,
             "total": build_s + device_s + post_s,
-        })
+            "t_start": t_start,
+            "ingest": t0h - t_start,
+            "build": build_s,
+            "step": device_s,
+            "plan": self._t_planned - t1h,
+            "pack": t_enq - self._t_planned,
+            "readback": t2h - t_enq,
+            "capture_ms": getattr(self.full_step, "last_capture_ms", 0.0),
+        }
+        if self.tracing:
+            timed = _take_timed(self.full_step)
+            if waited and timed:
+                row["device"] = dev = tracing.stage_ms(*timed[-1])
+                row["msckf"] = dev.get("msckf", 0.0) / 1e3
+                row["slam"] = dev.get("slam", 0.0) / 1e3
+        self._record_timing(row)
+
+    def _staged_device_ms(self) -> dict:
+        """Device ms of each staged stage's graph replays since the last
+        call (traced, once the stream has been waited for); a stage that
+        replayed nothing is absent."""
+        out = {}
+        for _, stage, names in _STAGED:
+            ms = [tracing.stage_ms(*r)["graph"] for n in names for r in _take_timed(getattr(self, n, None))]
+            if ms:
+                out[stage] = sum(ms)
+        return out
+
+    def _trace_on(self):
+        """Tracing on for this manager and its graphed callables, as if the
+        switch had been on when it was built (graphs captured before keep
+        no device marks: their replays are timed whole)."""
+        self.tracing = True
+        self._span = tracing.span_for(True)
+        for g in vars(self).values():
+            if isinstance(g, Graphed):
+                g.trace = True
 
     def _record_timing(self, row: dict):
         """Keep the frame's timing row and append it to the timing CSV."""
@@ -1302,7 +1435,11 @@ class VioManager:
 
     def record_timing(self, path: str):
         """Start recording per-stage timing rows to a CSV
-        (record_timing_information / record_timing_filepath)."""
+        (record_timing_information / record_timing_filepath). It turns
+        tracing on for the process and for this manager (`tracing.py`), so
+        the rows take the stages' device times (`_record_timing`)."""
+        tracing.enable()
+        self._trace_on()
         self._timing_file = open(path, "w")
         self._timing_file.write("# timestamp,uwb,propagation,msckf,slam,marginalization,total\n")
 

@@ -25,6 +25,13 @@ collectives of `uvio_tpu`'s `shard_map` become process-group collectives:
 The landmarks come back whole (an `all_gather` over "lm" after the last
 iteration). Only the order of the sums differs from the one-device solve.
 
+A step shorter than `_STEP_TOL` (the 2-norm over every pose and landmark
+update) is not taken, a rule `uvio_tpu`'s solver lacks. Near
+convergence such a step changes the cost by less than the cost's own
+rounding, so its accept test would follow the order of the sums, and the
+sharded and one-device solves would part by that step (~1e-10) where
+they otherwise agree to ~1e-12.
+
 Geometry: keyframe pose = (q_GtoC JPL, p_CinG), the camera pose directly;
 observations are normalized image coordinates with masks; landmarks are
 global 3D points. The first `fix_poses` keyframes hold the gauge, and
@@ -52,6 +59,11 @@ class BAOptions:
     damping_init: float = 1e-4
     huber_norm: float = 5e-3  # robust threshold in normalized units
     fix_poses: int = 1  # number of leading keyframes held fixed
+
+
+# a step shorter than this (2-norm over every pose and landmark update,
+# rad and m) is not taken
+_STEP_TOL = 1e-8
 
 
 def _residual_jacobians(q, p, lm):
@@ -191,6 +203,9 @@ class _Single:
     def cost(self, q, p, lm):
         return _local_cost(q, p, lm, self.uv, self.m, self.huber)
 
+    def step_sq(self, dx_l):
+        return (dx_l * dx_l).sum()
+
     def gather_lm(self, lm):
         return lm
 
@@ -257,6 +272,10 @@ class _Sharded:
         c = _local_cost(q[self.kf_cols], p[self.kf_cols], lm, self.uv, self.m, self.huber)
         return _all_reduce(c, self.mesh.group("all"))
 
+    def step_sq(self, dx_l):
+        # a landmark shard's update is the same on every "kf" coordinate
+        return _all_reduce((dx_l * dx_l).sum(), self.mesh.group("lm"))
+
     def gather_lm(self, lm):
         return _all_gather(lm, self.mesh.group("lm"), 0)
 
@@ -305,8 +324,10 @@ def ba_solve(q0, p0, lm0, obs_uv, obs_mask, opts: BAOptions = BAOptions(), mesh=
         p_new = p + dxp[:, 3:]
         lm_new = lm + dx_l
 
-        # accept if better (the new linearization's cost)
-        better = prob.cost(q_new, p_new, lm_new) < cost
+        # accept if better (the new linearization's cost) and not shorter
+        # than `_STEP_TOL`
+        moved = (dx_p * dx_p).sum() + prob.step_sq(dx_l) > _STEP_TOL**2
+        better = (prob.cost(q_new, p_new, lm_new) < cost) & moved
         q = torch.where(better, q_new, q)
         p = torch.where(better, p_new, p)
         lm = torch.where(better, lm_new, lm)

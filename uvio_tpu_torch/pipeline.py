@@ -67,6 +67,12 @@ What stays eager on the card, and why:
 | the init replays' propagate+clone and marginalization | `_try_static_init`, `_try_dynamic_init`: `_propagate_clone` / `_marginalize` with `eager=True` | at most a window of frames, once: a capture costs two to three eager frames a key, and none lands at the moment the filter starts |
 | RANSAC over the descriptor matches and over the left<->right stereo matches | `frontend/descriptor.py`, `frontend/stereo.py` `feed` | the number of pairs is known only on the host (both run outside `uvio_tpu`'s jits too) |
 | the batched steps given a process group | `make_batched_step`, `make_batched_full_step` | a gloo collective cannot be captured |
+
+With tracing on (`tracing.py`), the full step marks the end of each
+stage it runs on the device: `unpack` (the packed bundle's fields),
+`uwb_drain`, `propagate_clone`, `msckf`, `slam`, `marginalize`, `zupt`.
+Captured, each mark is an event node of the graph; a stage the plan does
+not run has no mark.
 """
 
 from __future__ import annotations
@@ -84,6 +90,7 @@ from .filter.ekf import marginalize_clone
 from .filter.propagator import INTEGRATIONS, NoiseManager, propagate_and_clone, propagate_mean_cov
 from .frontend.fused_vio import check_full_precision
 from .graphs import graphed
+from .tracing import mark
 from .types.layout import StateLayout
 from .types.state import FIELDS, FilterState, oldest_clone_slot, where_state
 from .update.msckf import msckf_update
@@ -563,14 +570,18 @@ def _visual(state, fb, plan, cfg, own=None):
     zeros = lambda *shape: torch.zeros(shape, dtype=torch.bool, device=state.cov.device)
     bit = lambda name: None if own is None else getattr(own, name)
     st, uwb_acc, uwb_chi2 = _uwb_drain(state, fb, plan, cfg, own)
+    if any(plan.uwb_rows):
+        mark("uwb_drain")
 
     st = propagate_and_clone(
         st, L, fb.imu_t, fb.imu_w, fb.imu_a, cfg.noises, cfg.gravity_mag,
         integration=cfg.integration, stamp_time=fb.stamp_time,
     )
+    mark("propagate_clone")
     st, minfo = msckf_update(
         st, L, cfg.cam_model, fb.msckf_uv, fb.msckf_mask, sigma_pix=cfg.sigma_pix, chi2_mult=cfg.chi2_mult
     )
+    mark("msckf")
     cov_ok = minfo["cov_ok"]
 
     slam_kept, slam_failed, slam_inited = zeros(S), zeros(S), zeros(Fc)
@@ -591,12 +602,14 @@ def _visual(state, fb, plan, cfg, own=None):
             st = _own(bit("slam_init"), st_i, st)
             slam_inited = _own(bit("slam_init"), ii["inited"], slam_inited)
             init_chi2 = _own(bit("slam_init"), ii["chi2"], init_chi2)
+        mark("slam")
 
     if plan.marg:
         st_m = st
         if S > 0:  # a no-op for the global representations
             st_m = anchor_change(st_m, L, fb.marg_slot, st_m.clone_head)
         st = _own(bit("marg"), marginalize_clone(st_m, L, fb.marg_slot), st)
+        mark("marginalize")
 
     infos = {
         "msckf": minfo,
@@ -644,6 +657,7 @@ def full_filter_step(state: FilterState, fb: FrameBundle, plan, *, cfg: FullStep
         st_z, z_acc, _ = zupt_try_update(*zargs, **kwargs)
     if own is not None:  # a sequence that did not try accepts nothing
         z_acc = z_acc & own.zupt_try
+    mark("zupt")
     # an accepted ZUPT skips the visual part: select its state and the
     # infos of a frame with no visual update
     infos = {**_select_infos(z_acc, _skipped(infos), infos), "zupt_accepted": z_acc}
@@ -671,6 +685,7 @@ def _packed_full_step(state, flat, shapes, plan, *, cfg: FullStepConfig):
     # a no-op inside the graph, whose static input is on the card already
     flat = flat.to(state.cov.device, non_blocking=True)
     fb = _bundle_leaves(_split(flat, shapes), state.cov.dtype)
+    mark("unpack")
     return full_filter_step(state, fb, plan, cfg=cfg)
 
 
