@@ -52,8 +52,11 @@ Phases, each printing one JSON line:
               truth at most the JAX one's + 2 cm, accepted ranges within 2%,
               all 25 SLAM slots full at the end; host syncs over that whole
               replay, with how many frames took each branch of the plan;
-              per-frame time of 1 more, warm, replay. It runs no hand
-              kernel (its inputs are features, not images).
+              per-frame time of 1 more, warm, replay. Its one hand kernel
+              is the UWB update's (`csrc/uwb_update.cu`, one launch a range
+              set); the phase ends by timing it on the corridor's layout
+              (D 130, float64) by the graph clock beside its bound by
+              bytes, an empty one-block launch and the plain version.
   9. manager — the live host loop, `UVioManager` fed by the port's
               simulator from the first IMU sample (`eval/capture.py`:
               `bench.py`'s scenario, 120 frames, seed 7). float64: the state
@@ -738,10 +741,16 @@ def full_step_phase(dev, card):
 
         return run, fx, plans, step
 
-    # ---- float64: the same decisions as the JAX float64 replay --------
-    run64, fx, _, step64 = replay(torch.float64)
+    # ---- float64: the same decisions as the JAX float64 replay, with the
+    # UWB kernel's launches counted over it --------
+    from uvio_tpu_torch.frontend import kernels as K
+
+    run64, fx, plans64, step64 = replay(torch.float64)
     n = len(fx.bundles)
-    st, out = run64()
+    K.reset_launch_counts()
+    rows = []
+    st, out = counted(K, [step64], run64, rows)
+    uwb_rec, uwb_ok = uwb_launch_record(rows, sum(sum(p.uwb_rows) for p in plans64))
     ref = fx.replays["f64"]
     bad, p_err, tr_err = [], 0.0, 0.0
     for k, (p, tr, info) in enumerate(out):
@@ -756,12 +765,14 @@ def full_step_phase(dev, card):
         p_err = max(p_err, float(np.abs(p.cpu().numpy() - ref["p"][k]).max()))
         tr_err = max(tr_err, abs(float(tr) / float(ref["cov_trace"][k]) - 1.0))
     rec64 = {"phase": "full_step", "precision": "float64", "frames": n, "infos_equal_all": not bad,
-             "max_p_diff_m": p_err, "max_trace_rel_diff": tr_err}
+             "max_p_diff_m": p_err, "max_trace_rel_diff": tr_err, **uwb_rec}
     log(rec64)
     if bad or not (p_err <= 1e-6 and tr_err <= 1e-6):
         for b in bad:
             log(b)
         raise RuntimeError("full_step float64 disagrees with the JAX float64 replay")
+    if not uwb_ok:
+        raise RuntimeError("full_step float64: not one UWB kernel launch a range set, all from replays")
 
     # ---- float32: the bench precision, held to the JAX float32 replay; the
     # same replay counts what waits for the host inside the steps: nothing
@@ -823,6 +834,60 @@ def full_step_phase(dev, card):
     if not step32.stats()["graphs"] == step64.stats()["graphs"] == len(set(plans)):
         raise RuntimeError(f"{step32.stats()['graphs']} and {step64.stats()['graphs']} graphs captured for "
                            f"{len(set(plans))} distinct plans")
+    uwb_kernel_timing(dev, card)
+
+
+def uwb_kernel_timing(dev, card):
+    """The UWB range-update kernel (`csrc/uwb_update.cu`) on the corridor's
+    layout (D 130, 8 anchor slots, 4 anchors, the lever arm; a state of the
+    benchmark scenario after 6 frames, float64, with its next range set): by
+    the graph clock beside its bound by bytes (the covariance read and
+    written once), an empty one-block launch and the plain version
+    `uwb_update_ref`; the kernel's result against the plain one's."""
+    import numpy as np
+    import torch
+
+    from uvio_tpu_torch import _build
+    from uvio_tpu_torch.eval.capture import bench_scenario, drive
+    from uvio_tpu_torch.types.state import state_from_numpy, state_to_numpy
+    from uvio_tpu_torch.update import uwb
+
+    sim, mgr = bench_scenario(8, seed=7, max_slam=0, dtype="float64", device="cpu", max_anchors=8,
+                              calib_uwb_extrinsics=True, p_IinU=np.array([0.05, -0.02, 0.1]))
+    fed = []
+    feed = mgr.feed_uwb
+    mgr.feed_uwb = lambda t, r: (fed.append(r), feed(t, r))
+    snap = []
+    drive(sim, mgr, 7, on_frame=lambda k, t: snap.append((len(fed), state_to_numpy(mgr.state))) if k == 5 else None)
+    L, (n, arrays) = mgr.layout, snap[0]
+    ranges, mask = np.zeros(L.max_anchors), np.zeros(L.max_anchors, bool)
+    for aid, d in fed[n].items():
+        ranges[mgr.anchor_slot_by_id[aid]], mask[mgr.anchor_slot_by_id[aid]] = d, True
+    st = state_from_numpy(arrays, dev)
+    r, m = torch.as_tensor(ranges, device=dev), torch.as_tensor(mask, device=dev)
+    sigma = mgr.ucfg.sigma_range
+    got, gi = uwb.uwb_update(st, L, r, m, sigma_range=sigma)
+    want, wi = uwb.uwb_update_ref(st, L, r, m, sigma_range=sigma)
+    cov_err = float((got.cov - want.cov).abs().max() / want.cov.abs().max())
+    p_err = float((got.p - want.p).abs().max())
+    if not (torch.equal(gi["accepted"], wi["accepted"]) and cov_err <= 1e-12 and p_err <= 1e-12):
+        raise RuntimeError(f"uwb_update kernel against plain: accepted {gi['accepted'].tolist()} and "
+                           f"{wi['accepted'].tolist()}, cov {cov_err:.3g}, p {p_err:.3g}")
+    lib = _build.load()
+    cov_bytes = 2 * L.dim * L.dim * 8
+    rec = {"phase": "full_step", "part": "uwb_update kernel, corridor layout, float64", "dim": L.dim,
+           "anchor_slots": L.max_anchors, "ranges": int(mask.sum()), "accepted": int(gi["accepted"].sum()),
+           "shared_memory": uwb.uses_shared_memory(L, torch.float64),
+           "ms": graph_ms(lambda: uwb.uwb_update(st, L, r, m, sigma_range=sigma)),
+           "plain_ms": graph_ms(lambda: uwb.uwb_update_ref(st, L, r, m, sigma_range=sigma), k=5, replays=10),
+           "empty_one_block_ms": graph_ms(lambda: _checked(lib.uvio_empty_launch(1, 1, 512, _stream()),
+                                                           "uvio_empty_launch")),
+           "bound_ms": cov_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": cov_bytes,
+           "ms_by_valid_ranges": {n: graph_ms(lambda: uwb.uwb_update(st, L, r, m & (torch.cumsum(m, 0) <= n),
+                                                                    sigma_range=sigma)) for n in (0, 1, 2)},
+           "library_ms": None, "max_cov_rel_diff": cov_err, "max_p_diff_m": p_err, "card": card}
+    log(rec)
+    return rec
 
 
 class SyncCounter:
@@ -897,11 +962,12 @@ def manager_bench_scenario(dev, card):
                 worst = max(worst, float(np.abs(a - b).max()))
         return worst
 
-    # ---- float64, live: the fixture's state0, bundles and decisions -----
+    # ---- float64, live: the fixture's state0, bundles and decisions, with
+    # the UWB kernel's launches counted over the whole run -----
     sim, mgr = bench_scenario(n_warm + n, seed=7, max_slam=25, dtype="float64")
     if mgr.state.cov.device != dev:
         raise RuntimeError(f"the manager's state is on {mgr.state.cov.device}, not {dev}")
-    rec = record_live(sim, mgr, n_warm + n, snapshot_at=n_warm)
+    rec, uwb_rec, uwb_ok = manager_uwb_counted(mgr, lambda: record_live(sim, mgr, n_warm + n, snapshot_at=n_warm))
     torch.cuda.synchronize()
     state_diff = worst_diff(rec["snapshot"], fx.state0, FIELDS, "the state after 20 frames")
     bundle_diff, first_bad = 0.0, None
@@ -922,12 +988,14 @@ def manager_bench_scenario(dev, card):
              "steps": len(rec["bundles"]), "state0_max_diff": state_diff,
              "bundles_max_diff": bundle_diff, "infos_equal_all": not bad,
              "final_p_diff_vs_jax_m": final_diff, "time_host_is_state_time":
-             mgr._time_host == float(mgr.state.time), "card": card}
+             mgr._time_host == float(mgr.state.time), **uwb_rec, "card": card}
     log(rec64)
     if (len(rec["bundles"]) != n_warm + n or state_diff > 1e-9 or bundle_diff > 1e-9 or bad
             or final_diff > 1e-6 or not rec64["time_host_is_state_time"]):
         log({"first_bundle_past_1e-9": first_bad, "infos_differ": bad[:10]})
         raise RuntimeError("the live float64 loop does not reproduce the fixture")
+    if not uwb_ok:
+        raise RuntimeError("the live float64 loop: not one UWB kernel launch a range set, all from replays")
     step64 = mgr.full_step
 
     # ---- float32, live: accuracy gates, with every frame's syncs counted
@@ -1003,6 +1071,36 @@ def manager_bench_scenario(dev, card):
                        "scenario", card, [shared], timing,
                        {"eager": launch_profile(one_frame(shared.eager)), "graphed": launch_profile(one_frame(shared))},
                        graphs_float64=step64.stats()["graphs"], pool_mb_float64=step64.stats()["pool_bytes"] / 2**20)
+
+
+def manager_uwb_counted(mgr, run):
+    """(run(), `uwb_launch_record`'s record and verdict) with the hand
+    kernels' counts reset first: a range set is a UWB row that the fused
+    step's plan runs (`pipeline.plan_frame`) or one drained by the staged
+    stage `_stage_uwb` (when more sets wait than the step takes)."""
+    import uvio_tpu_torch.manager as M
+    from uvio_tpu_torch.frontend import kernels as K
+
+    sets, plan, stage = [0], M.plan_frame, mgr._stage_uwb
+
+    def planned(*args):
+        p = plan(*args)
+        sets[0] += sum(p.uwb_rows)
+        return p
+
+    def staged(*args, **kw):
+        sets[0] += 1
+        return stage(*args, **kw)
+
+    graphs = [getattr(mgr, name) for name in ("full_step", *stage_names(mgr)) if hasattr(mgr, name)]
+    M.plan_frame, mgr._stage_uwb = planned, staged
+    K.reset_launch_counts()
+    rows = []
+    try:
+        out = counted(K, graphs, run, rows)
+    finally:
+        M.plan_frame, mgr._stage_uwb = plan, stage
+    return (out, *uwb_launch_record(rows, sets[0]))
 
 
 def manager_rest_then_async(card):
@@ -1205,13 +1303,13 @@ def launch_record(K):
     return {**K.launch_counts, **{f"{k}_from_replays": n for k, n in K.replay_counts.items()}}
 
 
-HAND = ("fast9", "lk_track", "lk_level")
+HAND = ("fast9", "lk_track", "lk_level", "uwb_update")
 
 
 def counted(K, graphed, fn, rows):
     """fn(), appending to `rows` its hand-kernel launches as (all, from
-    graph replays, made by the first call of a key), each a (fast9,
-    lk_track, lk_level) tuple: a key's first call runs its body eagerly
+    graph replays, made by the first call of a key), each a tuple over
+    `HAND`: a key's first call runs its body eagerly
     once (the capture's warm-up), which launches what its new graph
     records; every other launch must come from a replay (`replays_gate`)."""
     l0, r0 = dict(K.launch_counts), dict(K.replay_counts)
@@ -1227,6 +1325,18 @@ def replays_gate(rows):
     """True when every launch of `rows` (`counted`) that no key's first call
     made came from a graph replay."""
     return all(tuple(n - r for n, r in zip(total, rep)) == first for total, rep, first in rows)
+
+
+def uwb_launch_record(rows, range_sets):
+    """The UWB kernel's launches over `rows` (`counted`) against the range
+    sets the run updated, and whether there is one launch a range set, all
+    from replays but those of each key's first call."""
+    k = HAND.index("uwb_update")
+    launches = sum(total[k] for total, _, _ in rows)
+    replayed = sum(rep[k] for _, rep, _ in rows)
+    rec = {"uwb_range_sets": range_sets, "uwb_update_launches": launches,
+           "uwb_update_from_replays": replayed, "uwb_update_first_calls": launches - replayed}
+    return rec, range_sets > 0 and launches == range_sets and replays_gate(rows)
 
 
 def stage_names(mgr):
@@ -1762,7 +1872,7 @@ def tracker_kernels_vs_plain(K, cam, frames, card):
     T.fast_score, T.lk_track = K.fast_score_ref, K.lk_track_ref
     plain = device_work()
     T.fast_score, T.lk_track = kernel_fns
-    if dict(K.launch_counts) != counts or counts != {"fast9": 2, "lk_track": 1, "lk_level": 0}:
+    if dict(K.launch_counts) != counts or counts != {"fast9": 2, "lk_track": 1, "lk_level": 0, "uwb_update": 0}:
         raise RuntimeError(f"launch counts {counts} then {dict(K.launch_counts)}")
     (s_k, uv_k, ok_k, tr_k, du_k, dk_k, active), (s_p, uv_p, ok_p, tr_p, du_p, dk_p, _) = with_kernels, plain
     both = ok_k & ok_p & active
@@ -1965,7 +2075,7 @@ def slice_phase(K, dev, render_out, card):
     st, infos = run_slice()
     launches = launch_record(K)
     n_steps = len(windows)
-    if dict(K.launch_counts) != {"fast9": n_steps, "lk_track": n_steps, "lk_level": 0}:
+    if dict(K.launch_counts) != {"fast9": n_steps, "lk_track": n_steps, "lk_level": 0, "uwb_update": 0}:
         raise RuntimeError(f"launch counts {launches} for {n_steps} steps")
     cov_ok = [bool(x["cov_ok"].item()) for x in infos]
     used = sum(int(x["num_used"].item()) for x in infos)

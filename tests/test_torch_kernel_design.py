@@ -286,6 +286,7 @@ def test_lk_source_constants_match_the_plain_versions():
 @pytest.mark.parametrize("entry,source", [
     ("uvio_lk_track", "lk_level.cu"), ("uvio_lk_level", "lk_level.cu"),
     ("uvio_fast9", "fast9.cu"), ("uvio_empty_launch", "yardstick.cu"),
+    ("uvio_uwb_update", "uwb_update.cu"), ("uvio_uwb_shared_memory", "uwb_update.cu"),
 ])
 def test_entry_points_exported_and_bound(entry, source):
     src = _src(source)

@@ -101,6 +101,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # the pyramids and their sizes are host arrays of `levels` entries
         "uvio_lk_track": [P, P, P, P, I, P, P, P, P, I, I, I, I, Fl, P],
         "uvio_empty_launch": [I, I, I, P],
+        # pointers and ints are host arrays laid out as `update/uwb.py` says
+        "uvio_uwb_update": [P, P, ctypes.c_double, ctypes.c_double, P],
+        "uvio_uwb_shared_memory": [P, P],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):

@@ -17,6 +17,8 @@ sequences (`pipeline.make_batched_full_step`).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from ..manager import CameraConfig
@@ -35,11 +37,12 @@ UWB_ANCHORS = {
 
 
 def bench_scenario(n_frames: int, seed: int = 7, max_slam: int = 25, dtype: str = "float32",
-                   device=None, fused_step: bool = True):
+                   device=None, fused_step: bool = True, **overrides):
     """(sim, mgr): the benchmark's simulator (200 Hz IMU, 10 Hz camera,
     20 Hz UWB, a circle long enough for `n_frames`) and a UVioManager on
     `device` (None: the card) initialized at the simulator's first state;
-    `fused_step=False` gives the staged manager."""
+    `fused_step=False` gives the staged manager; `overrides` replace
+    fields of its `UVioConfig` (e.g. `max_anchors`, `calib_uwb_extrinsics`)."""
     sim = Simulator(
         SimParams(sim_freq_imu=200.0, sim_freq_cam=10.0, num_pts=60, seed=seed,
                   uwb_anchors=UWB_ANCHORS),
@@ -69,7 +72,7 @@ def bench_scenario(n_frames: int, seed: int = 7, max_slam: int = 25, dtype: str 
         device=device,
         fused_step=fused_step,
     )
-    mgr = UVioManager(cfg)
+    mgr = UVioManager(dataclasses.replace(cfg, **overrides))
     gt0 = sim.get_gt_state(sim.t_start)
     mgr.initialize_with_gt(sim.t_start, gt0["q_GtoI"], gt0["p_IinG"], gt0["v_IinG"], gt0["bg"], gt0["ba"])
     return sim, mgr

@@ -17,6 +17,8 @@ inputs. Slot offsets are device tensors, and writes at them are
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from ..math import quat_multiply, quat_norm
@@ -46,50 +48,79 @@ def _dq(dtheta):
     return quat_norm(torch.cat([0.5 * dtheta, w], dim=-1))
 
 
-def inject(state: FilterState, layout: StateLayout, dx: torch.Tensor) -> FilterState:
-    """Apply an error-state correction to every mean block (masked).
-    FEJ linearization points are left untouched."""
+class Block(NamedTuple):
+    """A mean block that an update changes: state field `field` holds
+    `rows` rows of `width` values; row r's error is `err_stride` values
+    from `err_off + r * err_stride` (3 for a quaternion row, else
+    `width`); `mask` names the bool field of the rows to change (None:
+    every row)."""
+
+    field: str
+    quat: bool
+    rows: int
+    width: int
+    err_off: int
+    err_stride: int
+    mask: Optional[str] = None
+
+
+# the valid masks a block may name
+MASKS = ("clones_valid", "slam_valid", "anchors_valid")
+
+
+def inject_table(layout: StateLayout) -> tuple:
+    """The mean blocks of `layout` as `Block`s, in the order `inject`
+    changes them: what an error-state correction is injected into."""
     L = layout
-    q = quat_multiply(_dq(dx[L.theta_off : L.theta_off + 3]), state.q)
-    p = state.p + dx[L.p_off : L.p_off + 3]
-    v = state.v + dx[L.v_off : L.v_off + 3]
-    bg = state.bg + dx[L.bg_off : L.bg_off + 3]
-    ba = state.ba + dx[L.ba_off : L.ba_off + 3]
-    dxc = dx[L.clone_off : L.clone_off + 6 * L.max_clones].reshape(L.max_clones, 6)
-    cmask = state.clones_valid[:, None]
-    clones_q = torch.where(cmask, quat_multiply(_dq(dxc[:, 0:3]), state.clones_q), state.clones_q)
-    clones_p = torch.where(cmask, state.clones_p + dxc[:, 3:6], state.clones_p)
-    changes = dict(q=q, p=p, v=v, bg=bg, ba=ba, clones_q=clones_q, clones_p=clones_p)
-    if L.max_slam > 0:
-        dxs = dx[L.slam_off : L.slam_off + 3 * L.max_slam].reshape(L.max_slam, 3)
-        changes["slam_p"] = torch.where(state.slam_valid[:, None], state.slam_p + dxs, state.slam_p)
+    K, S, A, C = L.max_clones, L.max_slam, L.max_anchors, L.num_cams
+    t = [Block("q", True, 1, 4, L.theta_off, 3), Block("p", False, 1, 3, L.p_off, 3),
+         Block("v", False, 1, 3, L.v_off, 3), Block("bg", False, 1, 3, L.bg_off, 3),
+         Block("ba", False, 1, 3, L.ba_off, 3),
+         Block("clones_q", True, K, 4, L.clone_off, 6, "clones_valid"),
+         Block("clones_p", False, K, 3, L.clone_off + 3, 6, "clones_valid")]
+    if S > 0:
+        t.append(Block("slam_p", False, S, 3, L.slam_off, 3, "slam_valid"))
     if L.calib_imu_intrinsics:
-        changes["calib_imu_dw"] = state.calib_imu_dw + dx[L.imu_dw_off : L.imu_dw_off + 6]
-        changes["calib_imu_da"] = state.calib_imu_da + dx[L.imu_da_off : L.imu_da_off + 6]
+        t += [Block("calib_imu_dw", False, 1, 6, L.imu_dw_off, 6),
+              Block("calib_imu_da", False, 1, 6, L.imu_da_off, 6)]
         if L.calib_imu_g_sensitivity:
-            changes["calib_imu_tg"] = state.calib_imu_tg + dx[L.imu_tg_off : L.imu_tg_off + 9]
-        dq_imu = _dq(dx[L.imu_theta_off : L.imu_theta_off + 3])
-        if L.imu_model == IMU_MODEL_KALIBR:
-            changes["calib_imu_gq"] = quat_multiply(dq_imu, state.calib_imu_gq)
-        else:
-            changes["calib_imu_aq"] = quat_multiply(dq_imu, state.calib_imu_aq)
+            t.append(Block("calib_imu_tg", False, 1, 9, L.imu_tg_off, 9))
+        rot = "calib_imu_gq" if L.imu_model == IMU_MODEL_KALIBR else "calib_imu_aq"
+        t.append(Block(rot, True, 1, 4, L.imu_theta_off, 3))
     if L.calib_cam_timeoffset:
-        changes["calib_dt"] = state.calib_dt + dx[L.calib_dt_off]
+        t.append(Block("calib_dt", False, 1, 1, L.calib_dt_off, 1))
     if L.calib_cam_pose:
-        dxe = dx[L.calib_cam_pose_off : L.calib_cam_pose_off + 6 * L.num_cams].reshape(L.num_cams, 6)
-        changes["calib_cam_q"] = quat_multiply(_dq(dxe[:, 0:3]), state.calib_cam_q)
-        changes["calib_cam_p"] = state.calib_cam_p + dxe[:, 3:6]
+        t += [Block("calib_cam_q", True, C, 4, L.calib_cam_pose_off, 6),
+              Block("calib_cam_p", False, C, 3, L.calib_cam_pose_off + 3, 6)]
     if L.calib_cam_intrinsics:
-        dxi = dx[L.calib_cam_intr_off : L.calib_cam_intr_off + 8 * L.num_cams].reshape(L.num_cams, 8)
-        changes["calib_cam_intr"] = state.calib_cam_intr + dxi
+        t.append(Block("calib_cam_intr", False, C, 8, L.calib_cam_intr_off, 8))
     if L.calib_uwb_extrinsics:
-        changes["uwb_p_IinU"] = state.uwb_p_IinU + dx[L.calib_uwb_off : L.calib_uwb_off + 3]
-    if L.max_anchors > 0:
-        dxa = dx[L.anchor_off : L.anchor_off + 5 * L.max_anchors].reshape(L.max_anchors, 5)
-        amask = state.anchors_valid
-        changes["anchors_p"] = torch.where(amask[:, None], state.anchors_p + dxa[:, 0:3], state.anchors_p)
-        changes["anchors_gamma"] = torch.where(amask, state.anchors_gamma + dxa[:, 3], state.anchors_gamma)
-        changes["anchors_alpha"] = torch.where(amask, state.anchors_alpha + dxa[:, 4], state.anchors_alpha)
+        t.append(Block("uwb_p_IinU", False, 1, 3, L.calib_uwb_off, 3))
+    if A > 0:
+        t += [Block("anchors_p", False, A, 3, L.anchor_off, 5, "anchors_valid"),
+              Block("anchors_gamma", False, A, 1, L.anchor_off + 3, 5, "anchors_valid"),
+              Block("anchors_alpha", False, A, 1, L.anchor_off + 4, 5, "anchors_valid")]
+    return tuple(t)
+
+
+def inject(state: FilterState, layout: StateLayout, dx: torch.Tensor) -> FilterState:
+    """Apply an error-state correction to every mean block of
+    `inject_table` (quaternions by the error quaternion's product, the
+    rest added; masked rows left). FEJ linearization points are left
+    untouched."""
+    changes = {}
+    for b in inject_table(layout):
+        x = getattr(state, b.field)
+        n = 3 if b.quat else b.width
+        if b.rows > 1 or x.dim() == 2:  # (rows, n), a view
+            e = dx[b.err_off : b.err_off + (b.rows - 1) * b.err_stride + n].unfold(0, n, b.err_stride)
+        else:
+            e = dx[b.err_off : b.err_off + n]
+        new = quat_multiply(_dq(e), x) if b.quat else x + e.reshape(x.shape)
+        if b.mask is not None:
+            keep = getattr(state, b.mask)
+            new = torch.where(keep[:, None] if x.dim() == 2 else keep, new, x)
+        changes[b.field] = new
     return state.replace(**changes)
 
 

@@ -13,29 +13,22 @@ Counterpart of `uvio_tpu/frontend/pallas_kernels.py`:
 
 A wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises. Each kernel launch adds
-one to `launch_counts[name]`, so a run can show that its main path went
-through the kernels; inside a CUDA graph (`graphs.graphed`) the launches
-recorded at the capture are added at each replay instead, and to
-`replay_counts[name]` too: the launches that came from graph replays.
+one to `launch_counts[name]`, and each replayed one to `replay_counts`
+too (`launches.py`, which the filter's kernel shares).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..launches import launch_counts, replay_counts, reset_launch_counts  # noqa: F401
+from ..launches import route as _route
+
 # Bresenham circle of radius 3 (OpenCV FAST-16 layout): (dy, dx)
 _CIRCLE = [
     (0, 3), (1, 3), (2, 2), (3, 1), (3, 0), (3, -1), (2, -2), (1, -3),
     (0, -3), (-1, -3), (-2, -2), (-3, -1), (-3, 0), (-3, 1), (-2, 2), (-1, 3),
 ]
-
-launch_counts = {"fast9": 0, "lk_level": 0, "lk_track": 0}
-replay_counts = dict(launch_counts)
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = replay_counts[k] = 0
 
 
 def _check(name, t, dtype, shape):
@@ -45,19 +38,6 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-
-
-def _route(*tensors) -> bool:
-    """True for the CUDA kernel, False for the plain CPU version."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for device {dev}")
 
 
 def _stream(t: torch.Tensor) -> int:

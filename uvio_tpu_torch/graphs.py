@@ -36,7 +36,7 @@ The capture runs in thread-local mode, so a thread that stages the next
 inputs meanwhile (`pipeline.HostPipeline`) does not break it.
 
 The hand kernels' wrappers count their launches when they run
-(`frontend/kernels.py` `launch_counts`). Under capture they run once and
+(`launches.py` `launch_counts`). Under capture they run once and
 launch nothing, so the counts a capture adds are taken back and each
 replay adds them again (and to `replay_counts`): the counts stay the
 launches the card made.
@@ -62,7 +62,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from . import tracing
-from .frontend import kernels
+from . import launches
 
 
 # bytes between the starts of two tensors in a packed buffer: the
@@ -189,8 +189,8 @@ class Graphed:
         else:
             entry.graph.replay()
         for k, n in entry.launches.items():
-            kernels.launch_counts[k] += n
-            kernels.replay_counts[k] += n
+            launches.launch_counts[k] += n
+            launches.replay_counts[k] += n
         return entry.results({dt: f.clone() for dt, f in entry.out_flats.items()})
 
     def take_timed(self) -> list:
@@ -247,7 +247,7 @@ class Graphed:
             torch.cuda.synchronize(device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(device)
-            counts = dict(kernels.launch_counts)
+            counts = dict(launches.launch_counts)
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             collecting = gc.isenabled()
@@ -265,15 +265,15 @@ class Graphed:
             finally:
                 if collecting:
                     gc.enable()
-                launches = {k: kernels.launch_counts[k] - counts[k] for k in counts}
-                kernels.launch_counts.update(counts)
+                recorded = {k: launches.launch_counts[k] - counts[k] for k in counts}
+                launches.launch_counts.update(counts)
             capture_ms = (time.perf_counter() - t0) * 1e3
             consts = [None if isinstance(x, torch.Tensor) else x for x in out_leaves]
             if cap_spec != out_spec or consts != [None if isinstance(x, torch.Tensor) else x for x in cap_leaves]:
                 raise RuntimeError(f"{self.name}: the captured run returned another structure than "
                                    "the eager run of the same key")
             entry = _Entry(graph, dev_idx, inputs, in_flats, host, outputs, out_flats, consts, out_spec,
-                           {k: n for k, n in launches.items() if n}, marks, warmup_ms, capture_ms,
+                           {k: n for k, n in recorded.items() if n}, marks, warmup_ms, capture_ms,
                            torch.cuda.memory_reserved(device) - reserved)
             self.entries[key] = entry
             self.last_capture_ms = warmup_ms + capture_ms
