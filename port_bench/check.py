@@ -19,27 +19,44 @@ The numbers (`limits` in the configuration's file):
   final_mask_mismatch  exact: the live clones' times that differ (or are
                        missing on one side), and anchors missing or extra
 
-The control (`control_outputs`) is the program itself one step below the
-configuration's precision (its own float32 path for a float64
-configuration), judged the same way.
+The control (`drivers/vio.py` `control_outputs`) is the program itself
+one step below the configuration's precision (its own float32 path for a
+float64 configuration), judged the same way.
+
+`passed` is every system's rule; the rest is the `vio` system's judge
+(`drivers/vio.py` `judge`). This module imports the reference only when
+it runs, so the harness, which imports `passed`, loads no system's
+modules; the `vio` driver imports it with itself, before the window.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 
 import numpy as np
 
-from .drivers.vio import Estimator, Outputs, run_events
-from .reference import config as ref_config
-from .reference.uvio import UVio
-
 _EXACT = ("clones_t", "anchor_slots_extra", "anchors_missing")
+
+
+@dataclasses.dataclass
+class Outputs:
+    """What a run produced, on the host: `rows` (F, n) float64 the state
+    after each frame (q p v bg ba, the configured anchors' positions,
+    gammas and alphas, the lever arm), `final` the last frame's whole
+    state by name, its covariance ordered [imu | lever arm | clones
+    oldest first | anchors]."""
+
+    rows: np.ndarray
+    final: dict
 
 
 def reference_outputs(config, traffic, root, n_frames) -> Outputs:
     """The plain reference over the stream's first `n_frames` frames."""
+    from .reference import config as ref_config
+    from .reference.uvio import UVio
+
     est = UVio(ref_config.load(os.path.join(root, "configs", config["estimator"])))
     s = traffic.stream
     g = traffic.gt0
@@ -62,19 +79,6 @@ def reference_outputs(config, traffic, root, n_frames) -> Outputs:
     final["anchor_slots_extra"] = np.array([0])
     final["anchors_missing"] = np.array([0])
     return Outputs(np.array(rows), final)
-
-
-def control_outputs(pkg, config, traffic, root, device, n_frames) -> Outputs:
-    """The control in the program's place: the program in float32, the
-    nearest precision below the configuration's float64. Where its
-    covariance breaks (it raises `CovarianceError`), its outputs end with
-    the frame before: the control has failed, and these are its
-    readings."""
-    if config["dtype"] != "float64":
-        raise ValueError("the control steps a float64 configuration down to float32")
-    est = Estimator(pkg, config, traffic, root, device, dtype="float32")
-    n = run_events(est, n_frames, stop_on=(pkg.manager.CovarianceError,))
-    return est.outputs(n)
 
 
 def _rot_gap(q, q_ref):

@@ -1,14 +1,16 @@
-"""The estimator as a live vehicle runs it: sensors in, a pose a frame out.
+"""The driver of system `vio`: the port's UWB-aided estimator as a live
+vehicle runs it, sensors in, a pose a frame out.
 
-`Estimator` builds the port's manager from a configuration's YAML
+`Estimator` builds the port's `UVioManager` from a configuration's YAML
 directory (`load_config`) and feeds it one sensor event at a time: an
-IMU sample, a range set, a frame of tracks (`feed_features`, which
-returns once the frame's pose is in host memory).
+IMU sample, a range set, a frame of simulated tracks (`feed_features`,
+which returns once the frame's pose is in host memory). The traffic is
+`traffic/generate.py`'s, the judge `check.py`'s plain reference.
 
 After each frame `record` keeps what the check compares: the filter's
 IMU state, anchors and UWB lever arm in a device buffer, one copy a
 frame. `outputs` hands them over in the layout-free form the plain
-reference gives too (`reference/uvio.py`: `row`, `final`).
+reference gives too (`check.Outputs`: `rows`, `final`).
 """
 
 from __future__ import annotations
@@ -20,17 +22,20 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import check
+from ..check import Outputs
+# the judge's reference loads with the driver, before the window: set-up
+# counts its import, and nothing of the check loads after the run's look
+# for modules of JAX
+from ..reference import config as _ref_config, uvio as _ref_uvio  # noqa: F401
+from ..traffic.generate import make_traffic  # noqa: F401  (the driver's traffic)
 
-@dataclasses.dataclass
-class Outputs:
-    """What a run produced, on the host: `rows` (F, n) float64 the state
-    after each frame (q p v bg ba, the configured anchors' positions,
-    gammas and alphas, the lever arm), `final` the last frame's whole
-    state by name, its covariance ordered [imu | lever arm | clones
-    oldest first | anchors]."""
-
-    rows: np.ndarray
-    final: dict
+MODULES = ("utils.config", "manager", "uwb_manager")
+# the generator gives `range_drop_prob` a default: a mix states it all the same
+MIX_KEYS = ("warmup_s", "range_drop_prob")
+# the frame's host stages from its start, as `frame_timing` times them
+STAGES = (("build_s", "host bundle build"), ("step_s", "step (dispatch to read-back)"),
+          ("post_s", "host bookkeeping"))
 
 
 class Estimator:
@@ -75,6 +80,13 @@ class Estimator:
         """One frame through to its pose in host memory."""
         self.mgr.feed_features(float(self.stream.cam_t[k]), self.stream.tracks[k])
 
+    def frame_timing(self) -> dict:
+        """The manager's `last_timing` of the frame just fed (s): host
+        bundle build, step from dispatch to the frame's read-back, host
+        bookkeeping."""
+        lt = self.mgr.last_timing
+        return {"build_s": lt["uwb"], "step_s": lt["propagation"], "post_s": lt["marginalization"]}
+
     def record(self, k: int):
         st = self.mgr.state
         self.rows[k].copy_(torch.cat([getattr(st, f).reshape(-1) for f in self.FIELDS]))
@@ -106,25 +118,36 @@ class Estimator:
         return Outputs(rows, final)
 
 
-def run_events(est, n_frames: int, stop_on=()) -> int:
-    """Feed the stream's events as fast as they go, through frame
-    `n_frames - 1`, recording every frame. A frame that raises one of
-    `stop_on` ends the run early, with the state as the frame before left
-    it. Returns the frames recorded."""
+def control_outputs(pkg, config, traffic, root, device, n_frames) -> Outputs:
+    """The control in the program's place: the program in float32, the
+    nearest precision below the configuration's float64. Where its
+    covariance breaks (it raises `CovarianceError`), its outputs end with
+    the frame before: the control has failed, and these are its
+    readings."""
+    if config["dtype"] != "float64":
+        raise ValueError("the control steps a float64 configuration down to float32")
+    est = Estimator(pkg, config, traffic, root, device, dtype="float32")
     est.initialize()
-    for kind, i in est.stream.events:
-        if kind == "imu":
-            est.feed_imu(i)
-        elif kind == "uwb":
-            est.feed_uwb(i)
-        else:
-            before = est.mgr.state
-            try:
-                est.feed_frame(i)
-            except stop_on:
-                est.mgr.state = before
-                return i
-            est.record(i)
-            if i == n_frames - 1:
-                return n_frames
-    return n_frames
+    n = n_frames
+    for kind, i in traffic.stream.events:
+        if kind != "cam":
+            getattr(est, f"feed_{kind}")(i)
+            continue
+        before = est.mgr.state
+        try:
+            est.feed_frame(i)
+        except pkg.manager.CovarianceError:
+            est.mgr.state = before
+            n = i
+            break
+        est.record(i)
+        if i == n_frames - 1:
+            break
+    return est.outputs(n)
+
+
+def judge(config, traffic, out: Outputs, root) -> dict:
+    """{number: (value, limit)} of `out` against the plain reference:
+    `check.judge`, looked up when the check runs, so that a script that
+    replaces it (`scripts/frame_spans.py --no-check`) skips the check."""
+    return check.judge(config, traffic, out, root)

@@ -6,8 +6,9 @@ inputs and size, many seeds in one process.
 
 For each seed it makes the run's traffic, feeds the warm-up's and the
 window's frames as fast as they go through the program (`program`) or
-through the control in its place (`control`: the program in float32,
-the nearest precision below the configuration's float64), judges the
+through the control in its place (`control`, which the configuration's
+driver defines: for `vio` the program in float32, the nearest precision
+below the configuration's float64), judges the
 outputs as a run judges the program's, and prints one JSON line: the
 seed, the side, the frames and each number beside its limit. A sound
 check reads `correct: true` for the program and `false` for the
@@ -29,27 +30,27 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def reading(name: str, seed: int, seconds: float, device, side: str, frames=None, warmup_s=None) -> dict:
     """One seed's readings of `side`; `frames` and `warmup_s` shrink the
     run for tests."""
-    from port_bench import check
-    from port_bench.drivers.vio import Estimator, run_events
-    from port_bench.harness import BENCH_DIR, cell_files, program_package
-    from port_bench.traffic.generate import make_traffic
+    from port_bench.check import passed
+    from port_bench.harness import BENCH_DIR, cell_driver, cell_files, program_package, run_events
 
     _, config, mix = cell_files(name)
+    drv = cell_driver(config, mix)
     if warmup_s is not None:
         mix = dict(mix, warmup_s=warmup_s)
-    traffic = make_traffic(config, mix, seed, seconds, BENCH_DIR, frames=frames)
+    traffic = drv.make_traffic(config, mix, seed, seconds, BENCH_DIR, frames=frames)
     n = traffic.n_warmup + traffic.n_window
-    pkg = program_package()
+    pkg = program_package(drv.MODULES)
     t0 = time.perf_counter()
     if side == "control":
-        out = check.control_outputs(pkg, config, traffic, BENCH_DIR, device, n)
+        out = drv.control_outputs(pkg, config, traffic, BENCH_DIR, device, n)
     else:
-        est = Estimator(pkg, config, traffic, BENCH_DIR, device)
-        out = est.outputs(run_events(est, n))
+        est = drv.Estimator(pkg, config, traffic, BENCH_DIR, device)
+        run_events(est, traffic.stream.events, n)
+        out = est.outputs(n)
         del est
     t1 = time.perf_counter()
-    checks = check.judge(config, traffic, out, BENCH_DIR)
-    return {"seed": seed, "side": side, "correct": check.passed(checks) and len(out.rows) == n,
+    checks = drv.judge(config, traffic, out, BENCH_DIR)
+    return {"seed": seed, "side": side, "correct": passed(checks) and len(out.rows) == n,
             "frames": len(out.rows), "of": n, "run_s": t1 - t0, "reference_s": time.perf_counter() - t1,
             "checks": {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}}
 

@@ -2,14 +2,18 @@
 the control in its place and for each fault the cell can have, planted
 underneath a run that skips only the harness's look for a card."""
 
+import dataclasses
 import time
 import types
 
 import numpy as np
 import pytest
+import torch
 
+from port_bench import check, harness
 from port_bench.harness import run_cell
 from port_bench.readings import reading
+from port_bench.traffic.generate import make_traffic
 
 CELL = "uwb_corridor.live"
 SMALL = dict(frames=8, warmup_s=1.5)
@@ -41,8 +45,11 @@ def program(fault=None):
                                  uwb_manager=types.SimpleNamespace(UVioManager=Faulty))
 
 
+SEED = 1234567890123
+
+
 def cpu_run(pkg):
-    return run_cell(CELL, 1234567890123, 1.0, False, "cpu", time.perf_counter(), program=pkg, **SMALL)
+    return run_cell(CELL, SEED, 1.0, False, "cpu", time.perf_counter(), program=pkg, **SMALL)
 
 
 def test_the_program_is_correct():
@@ -73,3 +80,47 @@ def test_the_readings_of_the_program_are_correct():
     r = reading(CELL, 987654321, 1.0, "cpu", "program", **SMALL)
     assert r["correct"] and r["frames"] == r["of"]
     assert np.isfinite([c["value"] for c in r["checks"].values()]).all()
+
+
+def assert_same(a, b):
+    """Equal exactly, through lists, tuples, dicts, arrays and tensors."""
+    if isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            assert_same(x, y)
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert_same(a[k], b[k])
+    elif isinstance(a, (np.ndarray, torch.Tensor)):
+        assert type(a) is type(b) and a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), strict=True)
+    else:
+        assert a == b
+
+
+def test_the_corridor_reads_the_same_through_its_driver(monkeypatch):
+    """The configuration's `system` dispatches to `drivers/vio.py`: the run
+    is fed `traffic/generate.py`'s traffic bit for bit, and its checks are
+    `check.judge`'s for the outputs it judged."""
+    _, config, mix = harness.cell_files(CELL)
+    drv = harness.driver(config["system"])
+    seen = {}
+
+    def keeping(config, traffic, out, root):
+        seen.update(traffic=traffic, out=out)
+        return judge(config, traffic, out, root)
+
+    judge = drv.judge
+    monkeypatch.setattr(drv, "judge", keeping)
+    r = cpu_run(program())
+    ours = make_traffic(config, dict(mix, warmup_s=SMALL["warmup_s"]), SEED, 1.0, harness.BENCH_DIR,
+                        frames=SMALL["frames"])
+    for f in dataclasses.fields(ours.stream):
+        assert_same(getattr(seen["traffic"].stream, f.name), getattr(ours.stream, f.name))
+    for k in ("n_warmup", "n_window", "gt0", "uwb_mask"):
+        assert_same(getattr(seen["traffic"], k), getattr(ours, k))
+    assert len(seen["out"].rows) == ours.n_warmup + ours.n_window
+    checks = check.judge(config, ours, seen["out"], harness.BENCH_DIR)
+    assert r["correct"] and {k: c["value"] for k, c in r["checks"].items()} == {k: v for k, (v, _) in checks.items()}
+    assert {k: c["limit"] for k, c in r["checks"].items()} == config["limits"]

@@ -62,6 +62,39 @@ def test_reference_imports_nothing_of_the_program():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def imported_modules(path):
+    """Every module a source file imports, anywhere in it, relative ones
+    resolved inside `port_bench`."""
+    out = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                base = "port_bench" + ("." + base if base else "")
+            out |= {base} | {f"{base}.{a.name}" for a in node.names}
+    return out
+
+
+SYSTEM_MODULES = ("port_bench.drivers", "port_bench.traffic", "port_bench.reference")
+
+
+def test_the_harness_names_no_system():
+    """`harness.py` and `readings.py` reach a system's traffic, estimator,
+    timings and judge only through its driver: they import no driver,
+    traffic or reference module, read no manager, and importing them
+    loads none of those."""
+    for name in ("harness.py", "readings.py"):
+        path = os.path.join(BENCH, name)
+        assert not [m for m in imported_modules(path) if m.startswith(SYSTEM_MODULES)], name
+        assert ".mgr" not in open(path).read(), name
+    code = ("import sys; sys.path.insert(0, %r); import port_bench.harness, port_bench.readings; "
+            "print(sorted(m for m in sys.modules if m.startswith(%r)))" % (ROOT, SYSTEM_MODULES))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "[]", r.stdout + r.stderr
+
+
 def test_no_card_no_result(monkeypatch):
     """Without a CUDA device the run fails and prints no result: no CPU
     fall-back."""

@@ -104,7 +104,7 @@ def _covered(union: np.ndarray, a: int, b: int) -> int:
 class TraceData:
     """What the readers take from a trace."""
 
-    def __init__(self, events, frame_timing: List[dict]):
+    def __init__(self, events, frame_timing: List[dict], stages):
         dev = [(n, a, b) for n, d, a, b in events if d]
         host = [(n, a, b) for n, d, a, b in events if not d]
         frames = sorted([(a, b) for n, a, b in host if n == "frame"])
@@ -122,13 +122,15 @@ class TraceData:
         for n, a, b in dev:
             by_op[n] = by_op.get(n, 0.0) + (b - a) / 1e9
         self.device_ops = sorted(by_op.items(), key=lambda x: -x[1])[:10]
-        self.idle_gaps = self._gaps(host, frame_timing)
+        self.idle_gaps = self._gaps(host, frame_timing, stages)
 
-    def _gaps(self, host, frame_timing) -> List[list]:
+    def _gaps(self, host, frame_timing, stages) -> List[list]:
         """The ten longest gaps between device operations inside the
         traced window, each named by the innermost harness span it falls
-        in; inside a frame, by the frame's own `last_timing` stage (host
-        bundle build, step, bookkeeping)."""
+        in; inside a frame, by the frame's own stage: `stages`, the
+        driver's ((key, name), ...), laid end to end from the frame's
+        start with the durations of its timing row, the last taking the
+        rest."""
         if not self.frames or len(self.union) < 2:
             return []
         w0, w1 = self.frames[0][0], self.frames[-1][1]
@@ -149,12 +151,15 @@ class TraceData:
                 if i is not None and i < len(frame_timing) and frame_timing[i] is not None:
                     t = frame_timing[i]
                     off = (mid - ff[i][0]) / 1e9
-                    name = ("frame: host bundle build" if off < t["build_s"] else
-                            "frame: step (dispatch to read-back)"
-                            if off < t["build_s"] + t["step_s"] else "frame: host bookkeeping")
+                    end = 0.0
+                    for key, stage in stages:
+                        end += t[key]
+                        name = f"frame: {stage}"
+                        if off < end:
+                            break
             out.append([name, (b - a) / 1e9])
         return out
 
 
-def summarize(tracer: Optional[Tracer], frame_timing) -> Optional[TraceData]:
-    return None if tracer is None or not tracer.events else TraceData(tracer.events, frame_timing)
+def summarize(tracer: Optional[Tracer], frame_timing, stages) -> Optional[TraceData]:
+    return None if tracer is None or not tracer.events else TraceData(tracer.events, frame_timing, stages)
