@@ -32,6 +32,16 @@ stage, `residual_ms` (median of latency - (wait + ingest + build + step
 + post)), the same per 4 s of window, and for a traced run the `frame`
 and `uvio/frame` ranges the profiler kept and the frames left out. `--rows` writes every window
 frame's row as JSON lines.
+
+A cell whose estimator has a KLT tracker (`--workload euroc_v101.klt_live`)
+keeps the tracker's row beside the manager's (`tracker`), and the line
+gains `tracker`: the means of its spans (`track_ms`, `upload_ms`,
+`replay_ms`, `readback_ms`, `spawn_ms`) and of the frame's conversion to
+float32 (`convert_ms`, from the driver's timing), the median of its
+graph's replay events (`graph_ms`), the mean device ms of each of its
+marks (`preprocess`, `lk`, `ransac`, `detect`, `outputs`), its counts a
+frame (`n_tracked`, `n_lk_lost`, `n_ransac_lost`, `n_spawned`) and
+`residual_ms` less the tracker and the conversion (`frame_residual_ms`).
 """
 
 import argparse
@@ -44,6 +54,8 @@ import time
 PROCESS_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = ("unpack", "uwb_drain", "propagate_clone", "msckf", "slam", "marginalize", "zupt", "outputs")
+TRACKER_STAGES = ("preprocess", "lk", "ransac", "detect", "outputs")
+TRACKER_COUNTS = ("n_tracked", "n_lk_lost", "n_ransac_lost", "n_spawned")
 SLICE_S = 4.0
 
 
@@ -89,6 +101,23 @@ def summarize(rows, run_start):
                       "step_host_ms": mean([ms(r, "plan", "pack") for r in v]),
                       "latency_ms": statistics.median([1e3 * (r["done"] - r["due"]) for r in v])}
                      for k, v in sorted(slices.items())]
+    tracked = [r for r in rows if "tracker" in r]
+    if tracked:
+        tms = lambda r, k: 1e3 * r["tracker"][k]  # noqa: E731
+        tdev = [r["tracker"]["device"] for r in tracked if "device" in r["tracker"]]
+        tgraph = [d["graph"] for d in tdev]
+        out["tracker"] = {
+            **{f"{k}_ms": mean([tms(r, k) for r in tracked]) for k in ("track", "upload", "replay", "readback", "spawn")},
+            "convert_ms": mean([1e3 * r["convert_s"] for r in tracked]),
+            "graph_ms": statistics.median(tgraph) if tgraph else None,
+            "graph_p95_ms": p95(tgraph),
+            "stage_ms": {s: mean([d[s] for d in tdev if s in d]) for s in TRACKER_STAGES},
+            "counts": {k: mean([r["tracker"][k] for r in tracked]) for k in TRACKER_COUNTS},
+            "frame_residual_ms": statistics.median(
+                [1e3 * (r["done"] - r["spans"]["t_start"]) - ms(r, "ingest", "build", "step", "post")
+                 + 1e3 * (r["spans"]["t_start"] - r["tracker"]["t_start"]) - tms(r, "track") for r in tracked]),
+            "slam": {k: mean([r["spans"][k] for r in tracked]) for k in
+                     ("slam_in_state", "slam_updated", "slam_inited", "slam_marginalized")}}
     return out
 
 
@@ -109,9 +138,10 @@ def main(argv=None) -> int:
         print("frame_spans: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from port_bench import check, harness, trace
-    from port_bench.drivers.vio import Estimator
+    from port_bench import check, check_klt, harness, trace
     from uvio_tpu_torch import tracing
+
+    Estimator = harness.driver(harness.cell_files(args.workload)[1]["system"]).Estimator
 
     tracing.enable(bool(args.on))
     state = {"due": None, "profiling": False, "ranges": None, "summary_done": None}
@@ -132,6 +162,9 @@ def main(argv=None) -> int:
         if due is not None:
             rows.append({"k": k, "due": due, "done": done, "traced": state["profiling"],
                          "spans": dict(est.mgr.last_timing)})
+            if hasattr(est, "tracker"):
+                rows[-1]["tracker"] = dict(est.tracker.last_timing)
+                rows[-1]["convert_s"] = est.frame_timing()["convert_s"]
 
     start, stop = trace.Tracer.start, trace.Tracer.stop
 
@@ -159,7 +192,7 @@ def main(argv=None) -> int:
     trace.Tracer.start, trace.Tracer.stop = starting, stopping
     trace.SPANS = _Spans(trace.SPANS)
     if args.no_check:
-        check.judge = lambda *a, **k: {}
+        check.judge = check_klt.judge = lambda *a, **k: {}
 
     result = harness.run_cell(args.workload, args.seed, args.seconds, bool(args.trace), "cuda:0", PROCESS_START)
     result.pop("checks", None)

@@ -255,7 +255,7 @@ def test_tracker_device_steps_capture_safe():
     tr.feed(0.0, imgs[0])
     gumbel = torch.rand((64, 8, 24), generator=gen)
     pyr, packed = _check(tr.step_track.eager, tr.prev_pyr, tr._upload(imgs[1]), tr._upload_table(), gumbel)
-    assert packed.shape[1] == 3 and packed.shape[0] > 24  # the 24 tracks, then the detections
+    assert packed.shape[1] == 4 and packed.shape[0] > 24  # the 24 tracks with LK's ok, then the detections
 
 
 STAGES = ("_stage_prop", "_stage_msckf", "_stage_marg", "_stage_slam_up", "_stage_slam_init", "_stage_marg_slam",

@@ -267,7 +267,7 @@ def test_tracker_graph_equals_eager(dev):
     img_d, tab = a._upload(frames[-1][1]), a._upload_table()
     noise = gumbel_noise((64, 8, a.cap), torch.Generator(device=dev).manual_seed(1), dev)
     pyr, packed = _replay_without_sync(lambda: a.step_track(a.prev_pyr, img_d, tab, noise))
-    assert packed.shape[1] == 3 and len(pyr) == a.levels
+    assert packed.shape[1] == 4 and len(pyr) == a.levels  # [uv | tracked | LK ok]
 
 
 def test_failed_capture_raises(dev):

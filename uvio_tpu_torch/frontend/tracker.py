@@ -45,18 +45,38 @@ On CUDA tensors one `feed` launches the `fast9` kernel once and the
 `lk_track` kernel once, and `stereo_match` `lk_track` once, inside the
 graphs (`kernels.launch_counts` counts them at each replay); on the CPU
 the wrappers take their plain versions.
+
+Each `feed` leaves its timing row in `last_timing`, as a manager does
+(`tracing.py`): the host spans in s, `upload` (the frame and the track
+table on their way to the device), `replay` (the noise drawn and the
+graphed call made, to its return), `readback` (the wait for the device
+and the one copy back), `spawn` (new ids and the emitted tracks) and
+`track` (the whole `feed`, which they tile); the frame's counts from the
+read-back, `n_tracked`, `n_lk_lost` (active tracks LK dropped),
+`n_ransac_lost` (tracked by LK, rejected by RANSAC) and `n_spawned`; and
+`capture_ms`, the graph's warm-up and capture when the frame's key was
+new. With the tracing switch on when the tracker is built, the spans are
+also `uvio/<name>` profiler ranges, and the graphs carry device marks
+at the end of `preprocess` (equalization and pyramid), `lk`, `ransac`
+(with the undistortion) and `detect` (FAST-9 and the grid), whose ms the
+row's `device` holds. `last_readback` is the frame's packed read-back
+as it came ([uv_new | tracked | LK ok] a slot, then [uv | ok | 0] a
+detection; detections alone on a first frame).
 """
 
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..cam import models as cam_models
 from ..device import resolve_device
 from ..graphs import graphed
+from ..tracing import mark
 from .klt import (
     RANSAC_HYPOTHESES,
     build_pyramid,
@@ -139,6 +159,11 @@ class KLTTracker:
         self.step_first = graphed(self._device_first, "KLTTracker first frame")
         self.step_track = graphed(self._device_track, "KLTTracker tracking")
         self.step_stereo = graphed(self._device_stereo, "KLTTracker stereo match")
+        # the tracing switch, read once (`tracing.py`)
+        self.tracing = tracing.enabled()
+        self._span = tracing.span_for(self.tracing)
+        self.last_timing = None
+        self.last_readback = None
 
     def _fit_levels(self, img_shape):
         # coarsest pyramid level must still contain the LK window
@@ -182,6 +207,7 @@ class KLTTracker:
         tracked)."""
         prev_pyr = self.prev_pyr if prev_pyr is None else prev_pyr
         uv_new, ok = lk_track(prev_pyr, pyr, uv, active, half=self.half)
+        mark("lk")
         # both point sets through the (iterative) undistortion in one call
         uvn = cam_models.undistort(self.intrinsics, self.cam_model, torch.cat([uv, uv_new]))
         n = uv.shape[0]
@@ -206,21 +232,26 @@ class KLTTracker:
         """The device part of a first `feed` (same preprocessing as later
         frames, then detection only): (pyramid, detections packed (G,3))."""
         img_e, pyr = self._prepare(img_d)
+        mark("preprocess")
         uv, active = self._columns(tab)
         det_uv, det_ok = self._detect(img_e, uv, active)
+        mark("detect")
         return pyr, torch.cat([det_uv, det_ok[:, None]], dim=1).to(torch.float32)
 
     def _device_track(self, prev_pyr, img_d, tab, gumbel):
         """The device part of a later `feed`: LK from `prev_pyr`, RANSAC
         with the noise `gumbel`, then detection in the cells that failed
-        tracks left free: (pyramid, [uv_new | tracked] (N,3) on top of the
-        detections (G,3), packed)."""
+        tracks left free: (pyramid, [uv_new | tracked | LK ok] (N,4) on
+        top of the detections [uv | ok | 0] (G,4), packed)."""
         img_e, pyr = self._prepare(img_d)
+        mark("preprocess")
         uv, active = self._columns(tab)
-        uv_new, _, tracked = self._track(pyr, uv, active, gumbel, prev_pyr=prev_pyr)
+        uv_new, ok, tracked = self._track(pyr, uv, active, gumbel, prev_pyr=prev_pyr)
+        mark("ransac")
         det_uv, det_ok = self._detect(img_e, uv_new, tracked)
-        packed = torch.cat([torch.cat([uv_new, tracked[:, None]], dim=1),
-                            torch.cat([det_uv, det_ok[:, None]], dim=1)])
+        mark("detect")
+        packed = torch.cat([torch.cat([uv_new, tracked[:, None], ok[:, None]], dim=1),
+                            torch.cat([det_uv, det_ok[:, None], torch.zeros_like(det_ok[:, None])], dim=1)])
         return pyr, packed.to(torch.float32)
 
     def _device_stereo(self, pyr_left, img_d, tab):
@@ -235,26 +266,57 @@ class KLTTracker:
     def feed(self, t: float, img: np.ndarray, gumbel: torch.Tensor = None):
         """Process one image; returns (ids (N,), uvs (N,2)) of active
         tracks (including newly spawned ones). `gumbel`, (64, 8, N)
-        float32 Gumbel noise, replaces the generator's draw in RANSAC."""
-        if self.prev_img is None:
-            self._fit_levels(img.shape)
-        img_d, tab = self._upload(img), self._upload_table()
-        N = self.cap
-        if self.prev_img is None:
-            pyr, packed = self.step_first(img_d, tab)
-            host = packed.cpu().numpy()
-        else:
-            if gumbel is None:
-                gumbel = gumbel_noise((RANSAC_HYPOTHESES, 8, N), self.generator, self.device)
-            pyr, packed = self.step_track(self.prev_pyr, img_d, tab, gumbel)
-            host = packed.cpu().numpy()
-            self.uv = host[:N, :2].copy()
-            self.active = host[:N, 2] != 0
-            self.ids[~self.active] = -1
-            host = host[N:]
-        self._spawn(host[:, :2], host[:, 2] != 0)
-        self.prev_img, self.prev_pyr = pyr[0], pyr
-        return self._emit()
+        float32 Gumbel noise, replaces the generator's draw in RANSAC.
+        The frame's timing row is left in `last_timing` (module
+        docstring)."""
+        t0 = time.perf_counter()
+        with self._span("track"):
+            if self.prev_img is None:
+                self._fit_levels(img.shape)
+            with self._span("upload"):
+                img_d, tab = self._upload(img), self._upload_table()
+            t1 = time.perf_counter()
+            N = self.cap
+            n_active = int(self.active.sum())
+            first = self.prev_img is None
+            with self._span("replay"):
+                if first:
+                    step = self.step_first
+                    pyr, packed = step(img_d, tab)
+                else:
+                    step = self.step_track
+                    if gumbel is None:
+                        gumbel = gumbel_noise((RANSAC_HYPOTHESES, 8, N), self.generator, self.device)
+                    pyr, packed = step(self.prev_pyr, img_d, tab, gumbel)
+            t2 = time.perf_counter()
+            with self._span("readback"):
+                host = self.last_readback = packed.cpu().numpy()
+            t3 = time.perf_counter()
+            with self._span("spawn"):
+                if first:
+                    n_tracked = n_lk_lost = n_ransac_lost = 0
+                else:
+                    self.uv = host[:N, :2].copy()
+                    self.active = host[:N, 2] != 0
+                    self.ids[~self.active] = -1
+                    n_tracked = int(self.active.sum())
+                    n_ok = int(np.count_nonzero(host[:N, 3]))
+                    n_lk_lost, n_ransac_lost = n_active - n_ok, n_ok - n_tracked
+                    host = host[N:]
+                n_spawned = self._spawn(host[:, :2], host[:, 2] != 0)
+                self.prev_img, self.prev_pyr = pyr[0], pyr
+                out = self._emit()
+            t4 = time.perf_counter()
+        row = {"t_start": t0, "upload": t1 - t0, "replay": t2 - t1, "readback": t3 - t2, "spawn": t4 - t3,
+               "track": t4 - t0, "n_tracked": n_tracked, "n_lk_lost": n_lk_lost,
+               "n_ransac_lost": n_ransac_lost, "n_spawned": n_spawned,
+               "capture_ms": step.last_capture_ms}
+        if self.tracing:
+            timed = step.take_timed()
+            if timed:  # replays on the card, the stream waited for by the read-back
+                row["device"] = tracing.stage_ms(*timed[-1])
+        self.last_timing = row
+        return out
 
     def stereo_match(self, img_left, img_right, uv_left, valid, pyr_left=None):
         """LK-match features from the left image into the right image
@@ -275,7 +337,8 @@ class KLTTracker:
         host = self.step_stereo(pyr_left, self._upload(img_right), to_device(tab, self.device)).cpu().numpy()[:n]
         return host[:, :2].copy(), host[:, 2] != 0
 
-    def _spawn(self, det_uv, det_ok):
+    def _spawn(self, det_uv, det_ok) -> int:
+        """New tracks from the detections in free slots; returns how many."""
         free = np.nonzero(~self.active)[0]
         new = np.nonzero(det_ok)[0]
         n = min(len(free), len(new))
@@ -285,6 +348,7 @@ class KLTTracker:
             self.active[slot] = True
             self.ids[slot] = self.next_id
             self.next_id += 1
+        return n
 
     def _emit(self):
         sel = self.active

@@ -332,6 +332,9 @@ class VioManager:
         self.slam_slot_by_fid: Dict[int, int] = {}
         self.slam_fail: Dict[int, int] = {}
         self.slam_consumed_t: Dict[int, float] = {}
+        # the fused frame's landmark counts for its timing row: updated
+        # (had observations in the plan), initialized, marginalized
+        self._slam_counts = {"slam_updated": 0, "slam_inited": 0, "slam_marginalized": 0}
 
         # the stages, one graphed call each (`uvio_tpu`'s `_jit_*`): the
         # staged path runs them all; the init replay and the fused path's
@@ -795,6 +798,7 @@ class VioManager:
         `pipeline.full_filter_step`, then update the host mirrors from the
         returned infos (`do_feature_propagate_update` + UWB drain + ZUPT)."""
         t0h = _time.perf_counter()
+        self._slam_counts = dict.fromkeys(self._slam_counts, 0)
         with self._span("build"):
             fields, frame = self._build_fields(t)
         t1h = self._t_planned = _time.perf_counter()
@@ -921,6 +925,7 @@ class VioManager:
 
         uv_s, mask_s, slam_any_obs = self._slam_reobs()
         uv_c, mask_c, slots_c, fids_c = self._cand_rows(self._slam_candidates(t) if S > 0 else [])
+        self._slam_counts["slam_updated"] = int(mask_s.any(axis=(1, 2)).sum())
 
         fields = dict(
             imu_t=tt, imu_w=ww, imu_a=aa,
@@ -1201,6 +1206,7 @@ class VioManager:
             if fids[i] >= 0 and inited[i]:
                 self.slam_slot_by_fid[int(fids[i])] = int(slots[i])
                 self.slam_consumed_t[int(fids[i])] = t
+                self._slam_counts["slam_inited"] += 1
 
     def _consume_msckf(self, feats):
         """MSCKF features are used once (the reference sets to_delete)."""
@@ -1223,7 +1229,11 @@ class VioManager:
         to `feed_features`' return, which sets it: `marginalization` and
         what follows it), so that they add up to the frame's time from
         `t_start` to its return; `capture_ms`, the warm-up + capture ms
-        when the frame's plan was new, else 0; and, traced and read back,
+        when the frame's plan was new, else 0; the SLAM landmarks from the
+        host's plan and bookkeeping, `slam_in_state` after the frame,
+        `slam_updated` (with observations in the step), `slam_inited`
+        and `slam_marginalized` (dropped before or after it); and, traced
+        and read back,
         `device`: ms of the replayed graph (`graph`) and of each stage it
         marks (`tracing.stage_ms`)."""
         t_start, t0h, t1h, t_enq, t2h = stamps
@@ -1243,6 +1253,8 @@ class VioManager:
             "pack": t_enq - self._t_planned,
             "readback": t2h - t_enq,
             "capture_ms": getattr(self.full_step, "last_capture_ms", 0.0),
+            "slam_in_state": len(self.slam_slot_by_fid),
+            **self._slam_counts,
         }
         if self.tracing:
             timed = _take_timed(self.full_step)
@@ -1392,6 +1404,7 @@ class VioManager:
         slot = self.slam_slot_by_fid.pop(fid)
         self.slam_fail.pop(fid, None)
         self.slam_consumed_t.pop(fid, None)
+        self._slam_counts["slam_marginalized"] += 1
         # (the slot as a host tensor, as `uvio_tpu`'s `jnp.int32(slot)`: a
         # Python int would key a graph per slot value)
         self.state = self._stage_marg_slam(self.state, slot=self._host(slot, torch.int64))
