@@ -52,11 +52,22 @@ Phases, each printing one JSON line:
               truth at most the JAX one's + 2 cm, accepted ranges within 2%,
               all 25 SLAM slots full at the end; host syncs over that whole
               replay, with how many frames took each branch of the plan;
-              per-frame time of 1 more, warm, replay. Its one hand kernel
-              is the UWB update's (`csrc/uwb_update.cu`, one launch a range
-              set); the phase ends by timing it on the corridor's layout
+              per-frame time of 1 more, warm, replay. Its hand kernels
+              are the UWB update's (`csrc/uwb_update.cu`, one launch a range
+              set) and the SLAM delayed init's (`csrc/slam_init.cu`, one
+              launch a frame whose plan has candidates; both counted in the
+              float64 replay, all from graph replays but each key's first
+              call); the phase ends by timing the first on the corridor's layout
               (D 130, float64) by the graph clock beside its bound by
-              bytes, an empty one-block launch and the plain version.
+              bytes, an empty one-block launch and the plain version, and
+              the second against its plain version on the EuRoC cell's
+              layout (D 252, 50 slots, 24 rows a candidate, camera
+              calibration), its stereo layout (D 266, 48 rows) and the
+              fixture's frame 3 (D 182), float64 (accepted, rejected and
+              inactive candidates; `inited` equal, every float field within
+              1e-10 of its largest magnitude), then by the graph clock:
+              the kernel alone in its cluster and in one block, the whole
+              call, the plain version, beside the bound by bytes.
   9. manager — the live host loop, `UVioManager` fed by the port's
               simulator from the first IMU sample (`eval/capture.py`:
               `bench.py`'s scenario, 120 frames, seed 7). float64: the state
@@ -751,6 +762,7 @@ def full_step_phase(dev, card):
     rows = []
     st, out = counted(K, [step64], run64, rows)
     uwb_rec, uwb_ok = uwb_launch_record(rows, sum(sum(p.uwb_rows) for p in plans64))
+    init_rec, init_ok = slam_init_launch_record(rows, sum(p.slam_init for p in plans64))
     ref = fx.replays["f64"]
     bad, p_err, tr_err = [], 0.0, 0.0
     for k, (p, tr, info) in enumerate(out):
@@ -765,7 +777,7 @@ def full_step_phase(dev, card):
         p_err = max(p_err, float(np.abs(p.cpu().numpy() - ref["p"][k]).max()))
         tr_err = max(tr_err, abs(float(tr) / float(ref["cov_trace"][k]) - 1.0))
     rec64 = {"phase": "full_step", "precision": "float64", "frames": n, "infos_equal_all": not bad,
-             "max_p_diff_m": p_err, "max_trace_rel_diff": tr_err, **uwb_rec}
+             "max_p_diff_m": p_err, "max_trace_rel_diff": tr_err, **uwb_rec, **init_rec}
     log(rec64)
     if bad or not (p_err <= 1e-6 and tr_err <= 1e-6):
         for b in bad:
@@ -773,6 +785,9 @@ def full_step_phase(dev, card):
         raise RuntimeError("full_step float64 disagrees with the JAX float64 replay")
     if not uwb_ok:
         raise RuntimeError("full_step float64: not one UWB kernel launch a range set, all from replays")
+    if not init_ok:
+        raise RuntimeError("full_step float64: not one SLAM init kernel launch a frame with candidates, "
+                           "all from replays")
 
     # ---- float32: the bench precision, held to the JAX float32 replay; the
     # same replay counts what waits for the host inside the steps: nothing
@@ -835,6 +850,7 @@ def full_step_phase(dev, card):
         raise RuntimeError(f"{step32.stats()['graphs']} and {step64.stats()['graphs']} graphs captured for "
                            f"{len(set(plans))} distinct plans")
     uwb_kernel_timing(dev, card)
+    slam_init_kernel_timing(dev, card)
 
 
 def uwb_kernel_timing(dev, card):
@@ -888,6 +904,78 @@ def uwb_kernel_timing(dev, card):
            "library_ms": None, "max_cov_rel_diff": cov_err, "max_p_diff_m": p_err, "card": card}
     log(rec)
     return rec
+
+
+def slam_init_kernel_timing(dev, card):
+    """The SLAM delayed-init kernel (`csrc/slam_init.cu`) against its plain
+    version `slam_delayed_init_ref` on the EuRoC cell's layout, its stereo
+    layout and the replay fixture's frame 3 (the states of
+    tests/test_torch_slam_init_kernel.py: 8 candidates, of which the
+    cell's reject an outlier, an inactive row and a short track), float64;
+    then by the graph clock the kernel alone (its recorded launch, in its
+    cluster and in one block), the whole call (the batched part too) and
+    the plain version, beside the bound by bytes (the covariance read and
+    written once). One line a layout."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_slam_init_kernel import cell_case, fixture_case
+
+    from uvio_tpu_torch.types.state import FIELDS, state_from_numpy, state_to_numpy
+    from uvio_tpu_torch.update import slam
+    from uvio_tpu_torch.update.representations import ANCHORED_MSCKF_INVERSE_DEPTH as rep
+
+    def launch_args(call):
+        seen, apply = [], slam._Kernel.apply
+        slam._Kernel.apply = lambda *a: (seen.append(a), apply(*a))[1]
+        try:
+            call()
+        finally:
+            slam._Kernel.apply = apply
+        return seen[0]
+
+    recs = []
+    for name, case in (("cell", cell_case(rep)), ("stereo", cell_case(rep, cams=2)), ("fixture", fixture_case(rep))):
+        c = dataclasses.replace(case, state=state_from_numpy(state_to_numpy(case.state), dev), uv=case.uv.to(dev),
+                                mask=case.mask.to(dev), slots=case.slots.to(dev), ids=case.ids.to(dev))
+        L = c.layout
+        call = lambda: slam.slam_delayed_init(*c.args(), sigma_pix=c.sigma_pix)
+        plain = lambda: slam.slam_delayed_init_ref(*c.args(), sigma_pix=c.sigma_pix)
+        (got, gi), (want, wi) = call(), plain()
+        errs = {}
+        for f in FIELDS:
+            x, y = getattr(got, f), getattr(want, f)
+            if x.dtype.is_floating_point and x.numel():
+                errs[f] = float((x - y).abs().max()) / max(float(y.abs().max()), 1.0)
+            elif not torch.equal(x, y):
+                errs[f] = float("inf")
+        worst = max(errs, key=errs.get)
+        if not (torch.equal(gi["inited"], wi["inited"]) and errs[worst] <= 1e-10):
+            raise RuntimeError(f"slam_init kernel against plain, {name}: inited {gi['inited'].tolist()} and "
+                               f"{wi['inited'].tolist()}, {worst} {errs[worst]:.3g}")
+        args = launch_args(call)
+        size = slam.cluster_size
+        slam.cluster_size = lambda Fc: 1
+        try:
+            one = launch_args(call)
+        finally:
+            slam.cluster_size = size
+        cov_bytes = 2 * L.dim * L.dim * 8
+        kernel_ms = graph_ms(lambda: slam._Kernel.apply(*args))
+        bound = cov_bytes / HBM_BYTES_PER_S * 1e3
+        rec = {"phase": "full_step", "part": f"slam_init kernel, {name} layout, float64", "dim": L.dim,
+               "max_slam": L.max_slam, "rows": 2 * L.max_clones * L.num_cams, "candidates": int((c.ids >= 0).sum()),
+               "inited": int(gi["inited"].sum()), "cluster": slam.cluster_size(c.ids.shape[0]),
+               "kernel_ms": kernel_ms, "kernel_one_block_ms": graph_ms(lambda: slam._Kernel.apply(*one)),
+               "ms": graph_ms(call, k=10, replays=5), "plain_ms": graph_ms(plain, k=5, replays=5),
+               "bound_ms": bound, "bound_by": "bytes", "bytes": cov_bytes, "bound_share_pct": bound / kernel_ms * 100,
+               "max_cov_rel_diff": errs["cov"], "max_slam_p_rel_diff": errs["slam_p"],
+               "max_rel_diff": errs[worst], "max_rel_diff_field": worst, "card": card}
+        log(rec)
+        recs.append(rec)
+    return recs
 
 
 class SyncCounter:
@@ -1303,7 +1391,7 @@ def launch_record(K):
     return {**K.launch_counts, **{f"{k}_from_replays": n for k, n in K.replay_counts.items()}}
 
 
-HAND = ("fast9", "lk_track", "lk_level", "uwb_update")
+HAND = ("fast9", "lk_track", "lk_level", "uwb_update", "slam_init")
 
 
 def counted(K, graphed, fn, rows):
@@ -1337,6 +1425,19 @@ def uwb_launch_record(rows, range_sets):
     rec = {"uwb_range_sets": range_sets, "uwb_update_launches": launches,
            "uwb_update_from_replays": replayed, "uwb_update_first_calls": launches - replayed}
     return rec, range_sets > 0 and launches == range_sets and replays_gate(rows)
+
+
+def slam_init_launch_record(rows, init_frames):
+    """The SLAM delayed-init kernel's launches over `rows` (`counted`)
+    against the frames whose plan had candidates, and whether there is one
+    launch such a frame, all from replays but those of each key's first
+    call."""
+    k = HAND.index("slam_init")
+    launches = sum(total[k] for total, _, _ in rows)
+    replayed = sum(rep[k] for _, rep, _ in rows)
+    rec = {"slam_init_frames": init_frames, "slam_init_launches": launches,
+           "slam_init_from_replays": replayed, "slam_init_first_calls": launches - replayed}
+    return rec, init_frames > 0 and launches == init_frames and replays_gate(rows)
 
 
 def stage_names(mgr):
@@ -1872,7 +1973,8 @@ def tracker_kernels_vs_plain(K, cam, frames, card):
     T.fast_score, T.lk_track = K.fast_score_ref, K.lk_track_ref
     plain = device_work()
     T.fast_score, T.lk_track = kernel_fns
-    if dict(K.launch_counts) != counts or counts != {"fast9": 2, "lk_track": 1, "lk_level": 0, "uwb_update": 0}:
+    if dict(K.launch_counts) != counts or counts != {"fast9": 2, "lk_track": 1, "lk_level": 0, "uwb_update": 0,
+                                                     "slam_init": 0}:
         raise RuntimeError(f"launch counts {counts} then {dict(K.launch_counts)}")
     (s_k, uv_k, ok_k, tr_k, du_k, dk_k, active), (s_p, uv_p, ok_p, tr_p, du_p, dk_p, _) = with_kernels, plain
     both = ok_k & ok_p & active
@@ -2075,7 +2177,7 @@ def slice_phase(K, dev, render_out, card):
     st, infos = run_slice()
     launches = launch_record(K)
     n_steps = len(windows)
-    if dict(K.launch_counts) != {"fast9": n_steps, "lk_track": n_steps, "lk_level": 0, "uwb_update": 0}:
+    if dict(K.launch_counts) != {"fast9": n_steps, "lk_track": n_steps, "lk_level": 0, "uwb_update": 0, "slam_init": 0}:
         raise RuntimeError(f"launch counts {launches} for {n_steps} steps")
     cov_ok = [bool(x["cov_ok"].item()) for x in infos]
     used = sum(int(x["num_used"].item()) for x in infos)

@@ -42,6 +42,9 @@ graph's replay events (`graph_ms`), the mean device ms of each of its
 marks (`preprocess`, `lk`, `ransac`, `detect`, `outputs`), its counts a
 frame (`n_tracked`, `n_lk_lost`, `n_ransac_lost`, `n_spawned`) and
 `residual_ms` less the tracker and the conversion (`frame_residual_ms`).
+Every cell's line also counts, over the window's frames, the SLAM
+delayed-init kernel's launches (`launches.launch_counts`) against the
+frames whose plan had candidates (`slam_cands` in the manager's row).
 """
 
 import argparse
@@ -116,8 +119,8 @@ def summarize(rows, run_start):
             "frame_residual_ms": statistics.median(
                 [1e3 * (r["done"] - r["spans"]["t_start"]) - ms(r, "ingest", "build", "step", "post")
                  + 1e3 * (r["spans"]["t_start"] - r["tracker"]["t_start"]) - tms(r, "track") for r in tracked]),
-            "slam": {k: mean([r["spans"][k] for r in tracked]) for k in
-                     ("slam_in_state", "slam_updated", "slam_inited", "slam_marginalized")}}
+            "slam": {k: mean([r["spans"][k] for r in tracked if k in r["spans"]]) for k in
+                     ("slam_in_state", "slam_updated", "slam_cands", "slam_inited", "slam_marginalized")}}
     return out
 
 
@@ -139,7 +142,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     from port_bench import check, check_klt, harness, trace
-    from uvio_tpu_torch import tracing
+    from uvio_tpu_torch import launches, tracing
 
     Estimator = harness.driver(harness.cell_files(args.workload)[1]["system"]).Estimator
 
@@ -157,11 +160,13 @@ def main(argv=None) -> int:
 
     def feeding(est, k):
         due, state["due"] = state["due"], None
+        inits = launches.launch_counts.get("slam_init", 0)
         feed_frame(est, k)
         done = time.perf_counter()
         if due is not None:
             rows.append({"k": k, "due": due, "done": done, "traced": state["profiling"],
-                         "spans": dict(est.mgr.last_timing)})
+                         "spans": dict(est.mgr.last_timing),
+                         "slam_init_launches": launches.launch_counts.get("slam_init", 0) - inits})
             if hasattr(est, "tracker"):
                 rows[-1]["tracker"] = dict(est.tracker.last_timing)
                 rows[-1]["convert_s"] = est.frame_timing()["convert_s"]
@@ -205,6 +210,11 @@ def main(argv=None) -> int:
             window.append(r)
         prev_done = r["done"]
     summary = summarize(window, rows[0]["due"] if rows else 0.0)
+    summary["slam_init"] = {  # the kernel's launches against the frames with candidates
+        "launches": sum(r["slam_init_launches"] for r in window),
+        "frames_with_candidates": sum(r["spans"].get("slam_cands", 0) > 0 for r in window),
+        "frames_not_one_launch_a_plan": sum(r["slam_init_launches"] != (r["spans"].get("slam_cands", 0) > 0)
+                                            for r in window)}
     summary.update(on=args.on, trace=args.trace, seed=args.seed, ranges=state["ranges"],
                    left_out=len(rows) - len(window), card=torch.cuda.get_device_name(0))
     print(json.dumps(summary), flush=True)

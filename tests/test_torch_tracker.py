@@ -230,6 +230,23 @@ def test_tracker_refills_after_mass_loss():
     assert refilled >= 0.8 * full, (refilled, full)
 
 
+def test_eager_steps_keep_the_timing_row():
+    """A tracker whose graphed steps are swapped for their plain bodies
+    (`.eager`, as the card's graph-against-eager tests do) still writes its
+    timing row, with no capture time."""
+    from uvio_tpu_torch.frontend.tracker import KLTTracker
+
+    H, W = 120, 160
+    img = np.full((H, W), 60.0, np.float32)
+    img[8:H - 8:9, 8:W - 8:9] = 230.0
+    tr = KLTTracker(np.array([100.0, 100.0, W / 2, H / 2, 0, 0, 0, 0]), num_features=40, grid=(3, 4),
+                    histeq="NONE", device="cpu")
+    tr.step_first, tr.step_track = tr.step_first.eager, tr.step_track.eager
+    for k in range(2):
+        tr.feed(0.1 * k, img)
+        assert tr.last_timing["capture_ms"] == 0.0 and tr.last_timing["track"] > 0.0
+
+
 @pytest.mark.parametrize("num_features,grid", [(150, (8, 10)), (120, (5, 6)), (10, (6, 8)), (400, (6, 8))])
 def test_per_cell_rule(num_features, grid):
     cam, _ = _frames(n=0)

@@ -104,6 +104,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # pointers and ints are host arrays laid out as `update/uwb.py` says
         "uvio_uwb_update": [P, P, ctypes.c_double, ctypes.c_double, P],
         "uvio_uwb_shared_memory": [P, P],
+        # pointers and ints are host arrays laid out as `update/slam.py` says
+        "uvio_slam_init": [P, P, ctypes.c_double, P],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):

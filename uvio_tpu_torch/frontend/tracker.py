@@ -310,7 +310,7 @@ class KLTTracker:
         row = {"t_start": t0, "upload": t1 - t0, "replay": t2 - t1, "readback": t3 - t2, "spawn": t4 - t3,
                "track": t4 - t0, "n_tracked": n_tracked, "n_lk_lost": n_lk_lost,
                "n_ransac_lost": n_ransac_lost, "n_spawned": n_spawned,
-               "capture_ms": step.last_capture_ms}
+               "capture_ms": getattr(step, "last_capture_ms", 0.0)}
         if self.tracing:
             timed = step.take_timed()
             if timed:  # replays on the card, the stream waited for by the read-back

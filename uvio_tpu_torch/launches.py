@@ -9,12 +9,13 @@ launches recorded at the capture are added at each replay instead, and to
 `replay_counts[name]` too: the launches that came from graph replays.
 
 The kernels: the frontend's `fast9`, `lk_level` and `lk_track`
-(`frontend/kernels.py`) and the filter's `uwb_update` (`update/uwb.py`).
+(`frontend/kernels.py`) and the filter's `uwb_update` (`update/uwb.py`)
+and `slam_init` (`update/slam.py` `slam_delayed_init`).
 """
 
 from __future__ import annotations
 
-launch_counts = {"fast9": 0, "lk_level": 0, "lk_track": 0, "uwb_update": 0}
+launch_counts = {"fast9": 0, "lk_level": 0, "lk_track": 0, "uwb_update": 0, "slam_init": 0}
 replay_counts = dict(launch_counts)
 
 

@@ -333,8 +333,9 @@ class VioManager:
         self.slam_fail: Dict[int, int] = {}
         self.slam_consumed_t: Dict[int, float] = {}
         # the fused frame's landmark counts for its timing row: updated
-        # (had observations in the plan), initialized, marginalized
-        self._slam_counts = {"slam_updated": 0, "slam_inited": 0, "slam_marginalized": 0}
+        # (had observations in the plan), the delayed init's active
+        # candidates, initialized, marginalized
+        self._slam_counts = {"slam_updated": 0, "slam_cands": 0, "slam_inited": 0, "slam_marginalized": 0}
 
         # the stages, one graphed call each (`uvio_tpu`'s `_jit_*`): the
         # staged path runs them all; the init replay and the fused path's
@@ -1192,6 +1193,7 @@ class VioManager:
         used = set(self.slam_slot_by_fid.values())
         free_slots = [s for s in range(S) if s not in used]
         cands = cands[: min(len(free_slots), Fc)]
+        self._slam_counts["slam_cands"] = len(cands)
         slots = np.zeros(Fc, np.int32)
         fids = np.full(Fc, -1, np.int32)
         for i, f in enumerate(cands):
@@ -1231,7 +1233,8 @@ class VioManager:
         `t_start` to its return; `capture_ms`, the warm-up + capture ms
         when the frame's plan was new, else 0; the SLAM landmarks from the
         host's plan and bookkeeping, `slam_in_state` after the frame,
-        `slam_updated` (with observations in the step), `slam_inited`
+        `slam_updated` (with observations in the step), `slam_cands` (the
+        delayed init's active candidates, `cand_ids >= 0`), `slam_inited`
         and `slam_marginalized` (dropped before or after it); and, traced
         and read back,
         `device`: ms of the replayed graph (`graph`) and of each stage it

@@ -14,16 +14,35 @@ Port of `uvio_tpu/update/slam.py` (the reference's
 
 Observation tensors are indexed by slam slot (S,K,C,·), so landmark
 columns sit at static offsets. Candidates initialize one after another
-(each changes the covariance): a Python loop over the static candidate
-count, each candidate's outcome a select, so nothing waits for the host.
+(each changes the covariance). `slam_delayed_init` runs that chain as one
+launch of a hand-written CUDA kernel (`csrc/slam_init.cu`) on CUDA
+tensors, and as `slam_delayed_init_ref`, the plain version, on CPU
+tensors: a Python loop over the static candidate count, each candidate's
+outcome a select, so nothing waits for the host. Both share the batched
+part before the loop (`_candidate_systems`: triangulation, Jacobians,
+packed rows). The kernel changes the covariance, the mean blocks of
+`filter.ekf`'s `inject_table` and the landmark fields of the slots it
+fills; under `torch.func.vmap` (the batched full step) the launch's batch
+rule runs one cluster of blocks a sequence, so a batch is one launch too.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from .. import launches
 from ..cam import models as cam_models
-from ..filter.ekf import _slot_index, cho_solve, cholesky_or_nan, ekf_update, initialize_invertible_block
+from ..filter.ekf import (
+    MASKS,
+    _slot_index,
+    cho_solve,
+    cholesky_or_nan,
+    ekf_update,
+    initialize_invertible_block,
+    inject_table,
+)
 from ..math import quat_to_rot, skew
 from ..math.chi2 import chi2_95
 from ..types.layout import StateLayout
@@ -111,24 +130,11 @@ def slam_update(state, layout, obs_uv, obs_mask, cam_model, sigma_pix=1.0, chi2_
     return new_state, {"kept": keep, "failed": has_obs & ~keep, "cov_ok": diag["cov_ok"], "chi2": gamma}
 
 
-def slam_delayed_init(
-    state: FilterState,
-    layout: StateLayout,
-    obs_uv: torch.Tensor,
-    obs_mask: torch.Tensor,
-    target_slots: torch.Tensor,
-    cand_ids: torch.Tensor,
-    cam_model: int,
-    sigma_pix: float = 1.0,
-    chi2_mult: float = 1.0,
-):
-    """Initialize up to Fc candidate landmarks into free slam slots.
-
-    obs_uv (Fc,K,C,2), obs_mask (Fc,K,C), target_slots (Fc,) slam slots
-    (free, valid indices), cand_ids (Fc,) feature ids, -1 = inactive.
-    New landmarks are anchored at the newest clone (`clone_head`, a valid
-    slot after propagate+clone) of camera 0. Returns (state, {inited}).
-    """
+def _candidate_systems(state, layout, obs_uv, obs_mask, cand_ids, cam_model, sigma_pix):
+    """The delayed init's batched part: each candidate triangulated, its
+    stacked system in its representation, rows packed valid-first.
+    Returns (Hx_p (Fc,M,D), H_f_p (Fc,M,3), res_p (Fc,M), rm_p (Fc,M),
+    active (Fc,), vals0 (Fc,3), anchor_slot, anchor_cam)."""
     L = layout
     Fc, K, C, D = obs_uv.shape[0], L.max_clones, L.num_cams, L.dim
     dtype, device = state.cov.dtype, state.cov.device
@@ -178,7 +184,21 @@ def slam_delayed_init(
         vals0 = feat_p
     Hx_p, H_f_p, res_p, rm_p = _pack_rows(Hx, H_f, res, row_mask)
     active = (cand_ids >= 0) & tri_ok & (rm_p.sum(1) >= 6)
-    M = Hx.shape[1]
+    return Hx_p, H_f_p, res_p, rm_p, active, vals0, anchor_slot, anchor_cam
+
+
+def slam_delayed_init_ref(state, layout, obs_uv, obs_mask, target_slots, cand_ids, cam_model, sigma_pix=1.0,
+                          chi2_mult=1.0):
+    """The plain version of `slam_delayed_init`: a complete QR split
+    batched over the candidates, then a loop over them, each a general
+    `ekf_update` and a select of every state field."""
+    L = layout
+    Fc = obs_uv.shape[0]
+    dtype, device = state.cov.dtype, state.cov.device
+    rep = L.slam_rep
+    Hx_p, H_f_p, res_p, rm_p, active, vals0, anchor_slot, anchor_cam = _candidate_systems(
+        state, L, obs_uv, obs_mask, cand_ids, cam_model, sigma_pix)
+    M = Hx_p.shape[1]
 
     # QR split, batched over candidates: each rotation depends only on
     # the candidate's own H_f
@@ -228,3 +248,183 @@ def slam_delayed_init(
         inited.append(ok)
         chi2.append(gamma)
     return st, {"inited": torch.stack(inited), "chi2": torch.stack(chi2)}
+
+
+def slam_delayed_init(
+    state: FilterState,
+    layout: StateLayout,
+    obs_uv: torch.Tensor,
+    obs_mask: torch.Tensor,
+    target_slots: torch.Tensor,
+    cand_ids: torch.Tensor,
+    cam_model: int,
+    sigma_pix: float = 1.0,
+    chi2_mult: float = 1.0,
+):
+    """Initialize up to Fc candidate landmarks into free slam slots.
+
+    obs_uv (Fc,K,C,2), obs_mask (Fc,K,C), target_slots (Fc,) slam slots
+    (free, valid indices), cand_ids (Fc,) feature ids, -1 = inactive.
+    New landmarks are anchored at the newest clone (`clone_head`, a valid
+    slot after propagate+clone) of camera 0. Returns (state, {inited (Fc,),
+    chi2 (Fc,)}). CUDA tensors take the kernel, CPU tensors
+    `slam_delayed_init_ref` (module docstring).
+    """
+    if not launches.route(state.cov, obs_uv, obs_mask, target_slots, cand_ids):
+        return slam_delayed_init_ref(state, layout, obs_uv, obs_mask, target_slots, cand_ids, cam_model,
+                                     sigma_pix, chi2_mult)
+    L = layout
+    Hx_p, H_f_p, res_p, rm_p, active, vals0, anchor_slot, _ = _candidate_systems(
+        state, L, obs_uv, obs_mask, cand_ids, cam_model, sigma_pix)
+    M = Hx_p.shape[1]
+    thresh = chi2_mult * chi2_95(torch.clamp(rm_p.sum(1), min=1), max_dof=M)
+    table = inject_table(L)
+    cov, slam_valid, fej, *meta_fields, inited, chi2 = _Kernel.apply(
+        state.cov, Hx_p, H_f_p, res_p, thresh, active, target_slots.to(torch.int64), cand_ids.to(torch.int64),
+        vals0, anchor_slot, [getattr(state, m) for m in MASKS], state.slam_p_fej,
+        [getattr(state, f) for f in META], [getattr(state, b.field) for b in table],
+        kernel_ints(L, Fc=obs_uv.shape[0]), float(sigma_pix) ** 2)
+    meta, fields = meta_fields[:len(META)], meta_fields[len(META):]
+    new = state.replace(cov=cov, slam_valid=slam_valid, slam_p_fej=fej, **dict(zip(META, meta)),
+                        **{b.field: f for b, f in zip(table, fields)})
+    return new, {"inited": inited, "chi2": chi2}
+
+
+# ---------------------------------------------------------------------------
+# The kernel's arguments
+# ---------------------------------------------------------------------------
+
+
+# the landmark fields the kernel writes at an accepted candidate's slot
+# besides its mean, its FEJ value and its mask
+META = ("slam_id", "slam_anchor_slot", "slam_anchor_cam")
+
+
+def cluster_size(Fc: int) -> int:
+    """The blocks of a sequence's cluster: one a candidate, at most the
+    portable cluster size of 8."""
+    return min(Fc, 8)
+
+
+def kernel_ints(layout: StateLayout, Fc: int) -> list:
+    """The layout's part of the kernel's int arguments (`uvio_slam_init`
+    in `csrc/slam_init.cu`, from `dim` on): dim, Fc, M (a candidate's
+    rows, 2 K C), the most columns a candidate's H_x touches (the camera
+    calibration and clone columns, `feature_system`'s support), slam_off,
+    max_slam, whether the bearing freezes (the single-depth
+    representation), the cluster size, the table row of slam_p, the number
+    of blocks, then each block of `inject_table` as `update/uwb.py`
+    `kernel_ints` gives it. The kernel refuses a table or shape it does
+    not take."""
+    L = layout
+    if L.max_slam < 1:
+        raise ValueError("the SLAM init kernel needs 1 or more landmark slots")
+    table = inject_table(L)
+    row = {b.field: i for i, b in enumerate(table)}
+    return [L.dim, Fc, 2 * L.max_clones * L.num_cams, L.slam_off - L.calib_off, L.slam_off, L.max_slam,
+            int(L.slam_rep == ANCHORED_INVERSE_DEPTH_SINGLE),
+            cluster_size(Fc), row["slam_p"], len(table),
+            *[v for b in table for v in (int(b.quat), b.rows, b.width, b.err_off, b.err_stride,
+                                         MASKS.index(b.mask) if b.mask else -1)]]
+
+
+def work_bytes(D: int, Fc: int, M: int, itemsize: int) -> int:
+    """Bytes of a sequence's workspace (`work_layout` in
+    `csrc/slam_init.cu`): the transformed rows and residuals, R, gamma,
+    the Gram matrices, the cross terms, P H^T and K of the update and dx
+    in values, then each candidate's live columns and gate in ints; a
+    multiple of 16."""
+    values = Fc * M * D + Fc * M + 10 * Fc + Fc * M * M + 3 * D + 2 * M * D + D
+    b = values * itemsize + Fc * (D + 2) * 4
+    return (b + 15) // 16 * 16
+
+
+def _check(name, t, dtype, numel, device):
+    if t.dtype != dtype:
+        raise TypeError(f"slam_delayed_init {name}: expected {dtype}, got {t.dtype}")
+    if t.numel() != numel:
+        raise ValueError(f"slam_delayed_init {name}: expected {numel} values, got shape {tuple(t.shape)}")
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"slam_delayed_init {name}: must be contiguous on {device}")
+
+
+def _launch(batch, cov, hx, hf, res, thresh, active, slots, ids, vals0, anchor, masks, fej, meta, fields, ints,
+            sigma2):
+    """One launch for `batch` sequences held back to back in each tensor:
+    (cov, slam_valid, slam_p_fej, *meta, *fields, inited, chi2), freshly
+    allocated."""
+    from .. import _build
+
+    dtype, device = cov.dtype, cov.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"slam_delayed_init: a float32 or float64 covariance, got {dtype}")
+    D, Fc, M, S, nblocks = ints[0], ints[1], ints[2], ints[5], ints[9]
+    if len(fields) != nblocks or len(masks) != len(MASKS) or len(meta) != len(META):
+        raise ValueError(f"slam_delayed_init: {len(fields)} mean blocks, {len(masks)} masks and {len(meta)} "
+                         f"landmark fields for a table of {nblocks}, {len(MASKS)} and {len(META)}")
+    _check("cov", cov, dtype, batch * D * D, device)
+    _check("H_x", hx, dtype, batch * Fc * M * D, device)
+    _check("H_f", hf, dtype, batch * Fc * M * 3, device)
+    _check("res", res, dtype, batch * Fc * M, device)
+    _check("thresh", thresh, torch.float64, batch * Fc, device)
+    _check("active", active, torch.bool, batch * Fc, device)
+    _check("target_slots", slots, torch.int64, batch * Fc, device)
+    _check("cand_ids", ids, torch.int64, batch * Fc, device)
+    _check("vals0", vals0, dtype, batch * Fc * 3, device)
+    _check("clone_head", anchor, torch.int64, batch, device)
+    _check("slam_valid", masks[1], torch.bool, batch * S, device)
+    _check("slam_p_fej", fej, dtype, batch * S * 3, device)
+    for name, t in zip(META, meta):
+        _check(name, t, torch.int64, batch * S, device)
+    for k, f in enumerate(fields):
+        _, rows, width, _, _, mask = ints[10 + 6 * k: 16 + 6 * k]
+        _check(f"block {k}", f, dtype, batch * rows * width, device)
+        if mask >= 0:
+            _check(MASKS[mask], masks[mask], torch.bool, batch * rows, device)
+    cov_out = torch.empty_like(cov)
+    valid_out = torch.empty_like(masks[1])
+    fej_out = torch.empty_like(fej)
+    meta_out = [torch.empty_like(t) for t in meta]
+    outs = [torch.empty_like(f) for f in fields]
+    inited = torch.empty_like(active)
+    chi2 = torch.empty((batch * Fc,), dtype=dtype, device=device).reshape(active.shape)
+    per_seq = work_bytes(D, Fc, M, cov.element_size())
+    work = torch.empty((batch * per_seq,), dtype=torch.uint8, device=device)
+    ptrs = [cov, cov_out, hx, hf, res, thresh, active, slots, ids, vals0, anchor, *masks, valid_out, fej, fej_out,
+            *meta, *meta_out, inited, chi2, work, *[t for pair in zip(fields, outs) for t in pair]]
+    args = [int(dtype == torch.float64), batch, per_seq, *ints]
+    rc = _build.load().uvio_slam_init(
+        (ctypes.c_int64 * len(ptrs))(*[t.data_ptr() for t in ptrs]), (ctypes.c_int * len(args))(*args),
+        float(sigma2), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"uvio_slam_init launch failed: cudaError {rc}")
+    launches.launch_counts["slam_init"] += 1
+    return (cov_out, valid_out, fej_out, *meta_out, *outs, inited, chi2)
+
+
+class _Kernel(torch.autograd.Function):
+    """The launch as an autograd function, for its `vmap` rule: under
+    `torch.func.vmap` every input gets its batch axis first (broadcast
+    where it has none) and one launch runs `info.batch_size` clusters, as
+    `update/uwb.py`'s does."""
+
+    @staticmethod
+    def forward(*args):
+        return _launch(1, *args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        B = info.batch_size
+
+        def front(x, d):
+            if isinstance(x, list):
+                return [front(y, e) for y, e in zip(x, d)]
+            return (x.movedim(d, 0) if d is not None else x.expand(B, *x.shape)).contiguous()
+
+        n = len(args) - 2
+        out = _launch(B, *[front(x, d) for x, d in zip(args[:n], in_dims[:n])], *args[n:])
+        return out, (0,) * len(out)
