@@ -928,12 +928,12 @@ def slam_init_kernel_timing(dev, card):
     from uvio_tpu_torch.update.representations import ANCHORED_MSCKF_INVERSE_DEPTH as rep
 
     def launch_args(call):
-        seen, apply = [], slam._Kernel.apply
-        slam._Kernel.apply = lambda *a: (seen.append(a), apply(*a))[1]
+        seen, launch = [], slam._launch
+        slam._launch = lambda batch, *a: (seen.append(a), launch(batch, *a))[1]
         try:
             call()
         finally:
-            slam._Kernel.apply = apply
+            slam._launch = launch
         return seen[0]
 
     recs = []
@@ -963,12 +963,12 @@ def slam_init_kernel_timing(dev, card):
         finally:
             slam.cluster_size = size
         cov_bytes = 2 * L.dim * L.dim * 8
-        kernel_ms = graph_ms(lambda: slam._Kernel.apply(*args))
+        kernel_ms = graph_ms(lambda: slam._launch(1, *args))
         bound = cov_bytes / HBM_BYTES_PER_S * 1e3
         rec = {"phase": "full_step", "part": f"slam_init kernel, {name} layout, float64", "dim": L.dim,
                "max_slam": L.max_slam, "rows": 2 * L.max_clones * L.num_cams, "candidates": int((c.ids >= 0).sum()),
                "inited": int(gi["inited"].sum()), "cluster": slam.cluster_size(c.ids.shape[0]),
-               "kernel_ms": kernel_ms, "kernel_one_block_ms": graph_ms(lambda: slam._Kernel.apply(*one)),
+               "kernel_ms": kernel_ms, "kernel_one_block_ms": graph_ms(lambda: slam._launch(1, *one)),
                "ms": graph_ms(call, k=10, replays=5), "plain_ms": graph_ms(plain, k=5, replays=5),
                "bound_ms": bound, "bound_by": "bytes", "bytes": cov_bytes, "bound_share_pct": bound / kernel_ms * 100,
                "max_cov_rel_diff": errs["cov"], "max_slam_p_rel_diff": errs["slam_p"],

@@ -9,8 +9,10 @@ port's entry points run on the card unless given `device="cpu"`.
 The kernels themselves run only on the card: `test_torch_kernels_cuda.py`
 and `chip_smoke.py` hold them against these plain versions there."""
 
+import ctypes
 import os
 import re
+import shutil
 
 import numpy as np
 import pytest
@@ -287,6 +289,7 @@ def test_lk_source_constants_match_the_plain_versions():
     ("uvio_lk_track", "lk_level.cu"), ("uvio_lk_level", "lk_level.cu"),
     ("uvio_fast9", "fast9.cu"), ("uvio_empty_launch", "yardstick.cu"),
     ("uvio_uwb_update", "uwb_update.cu"), ("uvio_uwb_shared_memory", "uwb_update.cu"),
+    ("uvio_slam_init", "slam_init.cu"),
 ])
 def test_entry_points_exported_and_bound(entry, source):
     src = _src(source)
@@ -303,6 +306,26 @@ def test_entry_points_exported_and_bound(entry, source):
     _build.bind(lib)
     assert len(fn.argtypes) == n_params
     assert os.path.join(CSRC, source) in _build.sources()
+    if entry in ("uvio_uwb_update", "uvio_slam_init"):  # the filter kernels' one signature
+        assert " ".join(m.group(1).split()) == ("const int64_t* ptrs, const int* ints, const double* reals, "
+                                                "cudaStream_t stream")
+        assert fn.argtypes == [ctypes.c_void_p] * 4
+
+
+def test_header_edits_change_the_library_digest(tmp_path, monkeypatch):
+    """The library is stamped with a hash of the sources and the headers
+    they include: an edit to the filter kernels' shared header, or a new
+    header, makes a built library stale."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    assert sorted(os.listdir(csrc)) == sorted([*map(os.path.basename, _build.sources()), "mean_table.cuh"])
+    before = _build._digest()
+    with open(csrc / "mean_table.cuh", "a") as f:
+        f.write("// an edit\n")
+    edited = _build._digest()
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert len({before, edited, _build._digest()}) == 3
 
 
 def test_lk_bound_counts_each_touched_pixel_once():

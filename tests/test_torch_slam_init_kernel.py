@@ -31,10 +31,10 @@ and one inactive row; each in the six landmark representations.
 Imports neither JAX nor `uvio_tpu`.
 """
 
-import ctypes
 import dataclasses
 import types
 
+import kernel_model as km
 import numpy as np
 import pytest
 import torch
@@ -177,13 +177,6 @@ def cell_case(rep, seed=0, dtype=T64, cams=1):
 # ---------------------------------------------------------------------------
 
 
-def _view(ptr, n, dtype):
-    """The n values of `dtype` at host address `ptr`, writable."""
-    if n == 0:
-        return np.zeros(0, dtype)
-    return np.frombuffer((ctypes.c_char * (n * np.dtype(dtype).itemsize)).from_address(ptr), dtype, n)
-
-
 def model_work_bytes(D, Fc, M, itemsize):
     """`work_bytes` in `csrc/slam_init.cu`, field by field."""
     values = Fc * M * D + Fc * M + 9 * Fc + Fc + Fc * M * M + 3 * D + M * D + M * D + D
@@ -218,39 +211,18 @@ def _chol(S):
         return np.full_like(S, np.nan)
 
 
-def _inject(outs, b, blocks, keep, dx):
-    for k, (quat, rows, width, err_off, err_stride, _) in enumerate(blocks):
-        x = outs[k][b].reshape(rows, width)
-        for row in range(rows):
-            if not keep[k][row]:
-                continue
-            e = dx[err_off + row * err_stride: err_off + row * err_stride + (3 if quat else width)]
-            if quat:
-                dq = np.array([*(e / 2), 1], x.dtype)
-                dq /= np.linalg.norm(dq)
-                dq = -dq if dq[3] < 0 else dq
-                pv, pw = x[row, :3].copy(), x[row, 3]
-                new = np.array([*(dq[3] * pv + pw * dq[:3] - np.cross(dq[:3], pv)), dq[3] * pw - dq[:3] @ pv],
-                               x.dtype)
-                new /= np.linalg.norm(new)
-                x[row] = -new if new[3] < 0 else new
-            else:
-                x[row] += e
-
-
-def model_entry(ptrs, ints, sigma2, stream):
-    """`uvio_slam_init` as the kernel computes it, reading its pointer and
-    int arrays as `csrc/slam_init.cu` does (one sequence after another
+def model_entry(ptrs, ints, reals, stream):
+    """`uvio_slam_init` as the kernel computes it, reading its pointer, int
+    and real arrays as `csrc/slam_init.cu` does (one sequence after another
     where the kernel runs one cluster each, and the candidates one after
     another where it gates them ahead and keeps the first accepted).
     Returns 0, as cudaSuccess."""
     T = np.float64 if ints[0] else np.float32
-    B, wbytes, D, Fc, M, cap, slam_off, S, freeze, n, slam_block, nb = ints[1:13]
+    B, wbytes, D, Fc, M, cap, slam_off, S, freeze, n, slam_block = ints[1:12]
     assert wbytes == model_work_bytes(D, Fc, M, np.dtype(T).itemsize) and 1 <= n <= min(Fc, 8)
-    blocks = [ints[13 + 6 * k: 19 + 6 * k] for k in range(nb)]
+    blocks = km.table(ints[12:])
     assert blocks[slam_block][1] == S and blocks[slam_block][5] == 1
-    it = iter(ptrs)
-    nxt = lambda count, dt: _view(next(it), count, dt)
+    nxt = km.reader(ptrs)
     cov_in = nxt(B * D * D, T).reshape(B, D, D)
     cov_out = nxt(B * D * D, T).reshape(B, D, D)
     hx = nxt(B * Fc * M * D, T).reshape(B, Fc, M, D)
@@ -262,8 +234,7 @@ def model_entry(ptrs, ints, sigma2, stream):
     ids = nxt(B * Fc, np.int64).reshape(B, Fc)
     vals0 = nxt(B * Fc * 3, T).reshape(B, Fc, 3)
     anchor = nxt(B, np.int64)
-    mask_rows = {m: rows for _, rows, _, _, _, m in blocks if m >= 0}
-    masks = [nxt(B * mask_rows.get(m, 0), np.bool_).reshape(B, -1) for m in range(3)]
+    masks = km.masks(nxt, B, blocks)
     valid_out = nxt(B * S, np.bool_).reshape(B, S)
     fej_in, fej_out = (nxt(B * S * 3, T).reshape(B, S, 3) for _ in range(2))
     meta_in = [nxt(B * S, np.int64).reshape(B, S) for _ in range(3)]
@@ -271,19 +242,14 @@ def model_entry(ptrs, ints, sigma2, stream):
     inited = nxt(B * Fc, np.bool_).reshape(B, Fc)
     chi2 = nxt(B * Fc, T).reshape(B, Fc)
     nxt(B * wbytes, np.uint8)
-    ins, outs = [], []
-    for _, rows, width, _, _, _ in blocks:
-        ins.append(nxt(B * rows * width, T).reshape(B, -1))
-        outs.append(nxt(B * rows * width, T).reshape(B, -1))
-    s2 = T(sigma2)
+    outs = km.mean_blocks(nxt, B, blocks, T)
+    s2 = T(reals[0])
     for b in range(B):
         P = cov_in[b].copy()
-        for k in range(nb):
-            outs[k][b] = ins[k][b]
         fej_out[b] = fej_in[b]
         for k in range(3):
             meta_out[k][b] = meta_in[k][b]
-        keep = [masks[m][b].copy() if m >= 0 else np.ones(rows, bool) for _, rows, _, _, _, m in blocks]
+        keep = km.keep(masks, b, blocks)
         for i in range(Fc):
             R, Y = _householder(hf[b, i], np.concatenate([hx[b, i], res[b, i][:, None]], 1))
             Hq, rq = Y[:, :D], Y[:, D]
@@ -319,7 +285,7 @@ def model_entry(ptrs, ints, sigma2, stream):
             if freeze:
                 P[off:off + 2, :] = 0
                 P[:, off:off + 2] = 0
-            _inject(outs, b, blocks, keep, K @ rup)
+            km.inject(outs, b, blocks, keep, K @ rup)
         cov_out[b] = P
         valid_out[b] = keep[slam_block]
     return 0
@@ -332,8 +298,7 @@ def modelled_launch(monkeypatch):
     as the library."""
     from uvio_tpu_torch import _build
 
-    monkeypatch.setattr(slam, "launches", types.SimpleNamespace(route=lambda *t: True,
-                                                                launch_counts=launches.launch_counts))
+    monkeypatch.setattr(slam, "launches", types.SimpleNamespace(**{**vars(launches), "route": lambda *t: True}))
     monkeypatch.setattr(_build, "load", lambda: types.SimpleNamespace(uvio_slam_init=model_entry))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
 
@@ -519,7 +484,7 @@ def test_launch_refuses_what_the_kernel_does_not_take(modelled_launch):
     with pytest.raises(ValueError, match="target_slots"):
         slam.slam_delayed_init(c.state, c.layout, c.uv, c.mask, c.slots[:-1], c.ids, c.cam_model)
     with pytest.raises(TypeError, match="float32 or float64"):
-        slam._launch(1, c.state.cov.half(), *[None] * 13, slam.kernel_ints(c.layout, 8), 1.0)
+        slam._launch(1, c.state.cov.half(), *[None] * 13, slam.kernel_ints(c.layout, 8), (1.0,))
     with pytest.raises(ValueError, match="landmark slots"):
         slam.kernel_ints(dataclasses.replace(c.layout, max_slam=0), 8)
     assert MASKS == ("clones_valid", "slam_valid", "anchors_valid")

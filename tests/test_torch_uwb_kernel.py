@@ -22,15 +22,17 @@ What surrounds it is checked here, where a silent fault would hide:
 Imports neither JAX nor `uvio_tpu`.
 """
 
-import ctypes
 import dataclasses
+import os
+import re
 import types
 
+import kernel_model as km
 import numpy as np
 import pytest
 import torch
 
-from uvio_tpu_torch import launches
+from uvio_tpu_torch import _build, launches
 from uvio_tpu_torch.filter.ekf import inject
 from uvio_tpu_torch.types.layout import IMU_MODEL_KALIBR, IMU_MODEL_RPNG, StateLayout
 from uvio_tpu_torch.types.state import FIELDS, FilterState, init_state, state_from_numpy, state_to_numpy
@@ -98,6 +100,11 @@ def ranges_for(state, layout, seed=0):
     return torch.as_tensor(ranges), torch.as_tensor(mask)
 
 
+def _header_source():
+    with open(os.path.join(_build.CSRC_DIR, "mean_table.cuh")) as f:
+        return f.read()
+
+
 # ---------------------------------------------------------------------------
 # the table and the ints against the layout
 # ---------------------------------------------------------------------------
@@ -136,7 +143,8 @@ def test_kernel_ints_follow_the_layout(name):
             names.index("uwb_p_IinU") if L.calib_uwb_extrinsics else -1,
             names.index("anchors_p"), names.index("anchors_gamma"), names.index("anchors_alpha"), len(table)]
     assert ints[:13] == head
-    assert len(ints) == 13 + 6 * len(table) and len(table) <= uwb.MAX_BLOCKS
+    max_blocks = int(re.search(r"constexpr int kMaxBlocks = (\d+);", _header_source()).group(1))
+    assert len(ints) == 13 + 6 * len(table) and len(table) <= max_blocks
     for k, b in enumerate(table):
         mask = uwb.MASKS.index(b.mask) if b.mask else -1
         assert ints[13 + 6 * k: 19 + 6 * k] == [int(b.quat), b.rows, b.width, b.err_off, b.err_stride, mask]
@@ -231,44 +239,35 @@ def test_cpu_tensors_run_the_plain_version(name, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def _view(ptr, n, dtype):
-    """The n values of `dtype` at host address `ptr`, writable."""
-    if n == 0:
-        return np.zeros(0, dtype)
-    return np.frombuffer((ctypes.c_char * (n * np.dtype(dtype).itemsize)).from_address(ptr), dtype, n)
-
-
-def model_entry(ptrs, ints, sigma2, thresh, stream):
-    """`uvio_uwb_update` as the kernel computes it, reading its pointer and
-    int arrays as `csrc/uwb_update.cu` does (one sequence after another
-    where the kernel runs one block each). Returns 0, as cudaSuccess."""
+def model_entry(ptrs, ints, reals, stream):
+    """`uvio_uwb_update` as the kernel computes it, reading its pointer,
+    int and real arrays as `csrc/uwb_update.cu` does (one sequence after
+    another where the kernel runs one block each). Returns 0, as
+    cudaSuccess."""
     T = np.float64 if ints[0] else np.float32
     B, D, A = ints[1], ints[2], ints[3]
     theta_off, p_off, lever_off, anchor_off = ints[4:8]
-    q_b, p_b, lever_b, ap_b, ag_b, aa_b, nb = ints[8:15]
-    blocks = [ints[15 + 6 * k: 21 + 6 * k] for k in range(nb)]
-    n_of = [rows * width for _, rows, width, _, _, _ in blocks]
-    outs = [_view(ptrs[11 + 2 * k], B * n_of[k], T).reshape(B, -1) for k in range(nb)]
-    ins = [_view(ptrs[10 + 2 * k], B * n_of[k], T).reshape(B, -1) for k in range(nb)]
-    mask_rows = {m: B * rows for _, rows, _, _, _, m in blocks if m >= 0}
-    masks = {m: _view(ptrs[3 + m], n, np.bool_).reshape(B, -1) for m, n in mask_rows.items()}
-    cov_in = _view(ptrs[0], B * D * D, T).reshape(B, D, D)
-    cov_out = _view(ptrs[1], B * D * D, T).reshape(B, D, D)
-    lever_in = _view(ptrs[2], B * 3, T).reshape(B, 3)
-    valid_a = _view(ptrs[5], B * A, np.bool_).reshape(B, A)
-    ranges = _view(ptrs[6], B * A, T).reshape(B, A)
-    range_mask = _view(ptrs[7], B * A, np.bool_).reshape(B, A)
-    accepted = _view(ptrs[8], B * A, np.bool_).reshape(B, A)
-    chi2 = _view(ptrs[9], B * A, T).reshape(B, A)
+    q_b, p_b, lever_b, ap_b, ag_b, aa_b = ints[8:14]
+    sigma2, thresh = reals[0], reals[1]
+    blocks = km.table(ints[14:])
+    nxt = km.reader(ptrs)
+    cov_in = nxt(B * D * D, T).reshape(B, D, D)
+    cov_out = nxt(B * D * D, T).reshape(B, D, D)
+    lever_in = nxt(B * 3, T).reshape(B, 3)
+    masks = km.masks(nxt, B, blocks)
+    ranges = nxt(B * A, T).reshape(B, A)
+    range_mask = nxt(B * A, np.bool_).reshape(B, A)
+    accepted = nxt(B * A, np.bool_).reshape(B, A)
+    chi2 = nxt(B * A, T).reshape(B, A)
+    outs = km.mean_blocks(nxt, B, blocks, T)
     for b in range(B):
         P = cov_in[b].copy()
-        for k in range(nb):
-            outs[k][b] = ins[k][b]
+        keep = km.keep(masks, b, blocks)
         q, p = outs[q_b][b], outs[p_b][b]
         lever = outs[lever_b][b] if lever_b >= 0 else lever_in[b]
         ap, ag, aa = outs[ap_b][b].reshape(A, 3), outs[ag_b][b], outs[aa_b][b]
         for s in range(A):
-            if not (range_mask[b, s] and valid_a[b, s]):
+            if not (range_mask[b, s] and masks[2][b, s]):
                 accepted[b, s], chi2[b, s] = False, 0
                 continue
             qv, w = q[:3], q[3]
@@ -297,23 +296,7 @@ def model_entry(ptrs, ints, sigma2, thresh, stream):
             K = pht / S if S > 0 else np.full(D, np.nan, T)
             P = P - np.outer(K, pht)
             P = T(0.5) * (P + P.T)
-            dx = K * r
-            for k, (quat, rows, width, err_off, err_stride, m) in enumerate(blocks):
-                x = outs[k][b].reshape(rows, width)
-                for row in range(rows):
-                    if m >= 0 and not masks[m][b, row]:
-                        continue
-                    e = dx[err_off + row * err_stride: err_off + row * err_stride + (3 if quat else width)]
-                    if quat:
-                        dq = np.array([*(e / 2), 1], T)
-                        dq /= np.linalg.norm(dq)
-                        pv, pw = x[row, :3].copy(), x[row, 3]
-                        new = np.array([*(dq[3] * pv + pw * dq[:3] - np.cross(dq[:3], pv)),
-                                        dq[3] * pw - dq[:3] @ pv], T)
-                        new /= np.linalg.norm(new)
-                        x[row] = -new if new[3] < 0 else new
-                    else:
-                        x[row] += e
+            km.inject(outs, b, blocks, keep, K * r)
         cov_out[b] = P
     return 0
 
@@ -329,8 +312,8 @@ def model_shared_bytes(ints):
     mean, the ranges and the covariance in values, then a byte a block
     row and a byte a slot."""
     itemsize = 8 if ints[0] else 4
-    D, A, nb = ints[2], ints[3], ints[14]
-    blocks = [ints[15 + 6 * k: 21 + 6 * k] for k in range(nb)]
+    D, A = ints[2], ints[3]
+    blocks = km.table(ints[14:])
     mean = sum(rows * width for _, rows, width, _, _, _ in blocks)
     return (2 * D + mean + A + D * D) * itemsize + sum(rows for _, rows, _, _, _, _ in blocks) + A
 
@@ -345,8 +328,6 @@ def model_shared_memory(ints, staged):
 def modelled_launch(monkeypatch):
     """CPU tensors take the launch path, with `model_entry` and
     `model_shared_memory` as the library."""
-    from uvio_tpu_torch import _build
-
     monkeypatch.setattr(launches, "route", lambda *t: True)
     monkeypatch.setattr(_build, "load", lambda: types.SimpleNamespace(uvio_uwb_update=model_entry,
                                                                       uvio_uwb_shared_memory=model_shared_memory))

@@ -3,9 +3,10 @@
 `csrc/*.cu` are compiled by `nvcc` for `sm_90a`, one process per source
 and all at once, and linked into one shared library with a plain C
 interface, `build/uvio_tpu_torch/libuvio_kernels.so` under the
-repository root, at first use. The library is rebuilt when the sources'
-hash changes and loaded with `ctypes`; no PyTorch headers are involved,
-so a build takes seconds.
+repository root, at first use. The library is rebuilt when the hash of
+the sources and the headers they include (`csrc/*.cuh`) changes, and
+loaded with `ctypes`; no PyTorch headers are involved, so a build takes
+seconds.
 """
 
 from __future__ import annotations
@@ -43,9 +44,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def _digest(srcs) -> str:
+def _digest() -> str:
+    """The library's stamp: a hash of the flags, the sources and the
+    headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
+    for path in sources() + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
     return h.hexdigest()
@@ -56,7 +59,7 @@ def build() -> str:
     the compiler's resource report (`-Xptxas -v`), empty when the
     library was already up to date."""
     srcs = sources()
-    digest = _digest(srcs)
+    digest = _digest()
     stamp = LIB_PATH + ".sha256"
     if os.path.exists(LIB_PATH) and os.path.exists(stamp):
         with open(stamp) as f:
@@ -95,17 +98,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argtypes of the entry points `lib` has: pointers and the
     stream as c_void_p, sizes as c_int."""
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # the filter kernels (`launches.launch`): host arrays of pointers, ints
+    # and reals laid out as their wrappers say, and the stream
+    filter_entry = [P, P, P, P]
     signatures = {
         "uvio_fast9": [P, P, I, I, Fl, P],
         "uvio_lk_level": [P, P, I, I, P, P, P, P, P, I, I, I, Fl, P],
         # the pyramids and their sizes are host arrays of `levels` entries
         "uvio_lk_track": [P, P, P, P, I, P, P, P, P, I, I, I, I, Fl, P],
         "uvio_empty_launch": [I, I, I, P],
-        # pointers and ints are host arrays laid out as `update/uwb.py` says
-        "uvio_uwb_update": [P, P, ctypes.c_double, ctypes.c_double, P],
+        "uvio_uwb_update": filter_entry,
+        "uvio_slam_init": filter_entry,
         "uvio_uwb_shared_memory": [P, P],
-        # pointers and ints are host arrays laid out as `update/slam.py` says
-        "uvio_slam_init": [P, P, ctypes.c_double, P],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):

@@ -61,32 +61,20 @@
 //     block, so no block waits to be told; the leader (rank 0) keeps the
 //     mean in shared memory and writes every output.
 
-#include <cmath>
-#include <cstdint>
-
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
+
+#include "mean_table.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBlocks = 24;  // mean blocks in the table
 constexpr int kMaxRows = 64;    // M = 2 K C, a candidate's stacked rows
 constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kMaxCands = 64;
-constexpr int kMaxSmem = 232448;
 constexpr int kChunk = 8;  // rows of K and P H^T staged at a time in the covariance update
 constexpr int kPer = 16;   // covariance pairs a thread updates at a time
-
-struct Block {
-  const void* in;
-  void* out;
-  int quat, rows, width, err_off, err_stride, mask;
-  int off, row0;  // its first value in the staged mean, its first row among all blocks' rows
-};
 
 struct Args {
   const void* cov_in;
@@ -100,7 +88,6 @@ struct Args {
   const int64_t* ids;
   const void* vals0;  // (Fc, 3)
   const int64_t* anchor_slot;
-  const bool* masks[3];  // clones_valid, slam_valid, anchors_valid
   bool* slam_valid_out;
   const void* fej_in;
   void* fej_out;
@@ -110,10 +97,9 @@ struct Args {
   void* chi2;
   unsigned char* work;
   int work_bytes;  // a sequence's share of `work`
-  int dim, fc, m_rows, live_cap, slam_off, max_slam, freeze, cluster, slam_block, nblocks;
-  int mean_len, rows;  // values and rows of all blocks together
+  int dim, fc, m_rows, live_cap, slam_off, max_slam, freeze, cluster, slam_block;
   double sigma2;
-  Block blocks[kMaxBlocks];
+  Table table;
 };
 
 // A sequence's workspace, in values of T, then ints: the transformed rows
@@ -167,45 +153,15 @@ template <typename T>
 size_t smem_bytes(const Args& a) {
   const size_t D = a.dim, M = a.m_rows, cap = a.live_cap;
   const size_t values =
-      cap * M + buf_values(a.dim, a.m_rows, a.live_cap) + 2 * M * M + 2 * M + 3 * M + kWarps * cap + a.mean_len;
-  return values * sizeof(T) + cap * sizeof(int) + D + a.rows;
+      cap * M + buf_values(a.dim, a.m_rows, a.live_cap) + 2 * M * M + 2 * M + 3 * M + kWarps * cap + a.table.mean_len;
+  return values * sizeof(T) + cap * sizeof(int) + D + a.table.rows;
 }
-
-__device__ __forceinline__ double ldcg(const double* p) { return __ldcg(p); }
-__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ int ldcg(const int* p) { return __ldcg(p); }
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// the block holding row `row` among all blocks' rows
-__device__ __forceinline__ int block_of_row(const Block* blocks, int row) {
-  int k = 0;
-  while (row >= blocks[k].row0 + blocks[k].rows) ++k;
-  return k;
-}
-
-// q <- quat_norm(dq (x) q), dq = quat_norm([dth / 2, 1]) (JPL, w last, w >= 0)
-template <typename T>
-__device__ void quat_inject(T* q, T dx, T dy, T dz) {
-  T e[4] = {T(0.5) * dx, T(0.5) * dy, T(0.5) * dz, T(1)};
-  T n = sqrt(e[0] * e[0] + e[1] * e[1] + e[2] * e[2] + e[3] * e[3]);
-  for (int i = 0; i < 4; ++i) e[i] /= n;
-  if (e[3] < T(0))
-    for (int i = 0; i < 4; ++i) e[i] = -e[i];
-  const T pv[3] = {q[0], q[1], q[2]}, pw = q[3];
-  T r[4];
-  r[0] = e[3] * pv[0] + pw * e[0] - (e[1] * pv[2] - e[2] * pv[1]);
-  r[1] = e[3] * pv[1] + pw * e[1] - (e[2] * pv[0] - e[0] * pv[2]);
-  r[2] = e[3] * pv[2] + pw * e[2] - (e[0] * pv[1] - e[1] * pv[0]);
-  r[3] = e[3] * pw - (e[0] * pv[0] + e[1] * pv[1] + e[2] * pv[2]);
-  n = sqrt(r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + r[3] * r[3]);
-  const T s = r[3] / n < T(0) ? -n : n;
-  for (int i = 0; i < 4; ++i) q[i] = r[i] / s;
 }
 
 // out[ri * ldo_r + b * ldo_b] = sum_k P[row(ri), cols[k]] hv[k * ldh + b0 + b]
@@ -300,7 +256,7 @@ __global__ void __launch_bounds__(kThreads) slam_init_kernel(const Args a) {
   T* hh = vec + 2 * M;  // the Householder vectors, [k][j]
   T* rowbuf = hh + 3 * M;
   T* mean = rowbuf + kWarps * cap;
-  int* live = reinterpret_cast<int*>(mean + a.mean_len);
+  int* live = reinterpret_cast<int*>(mean + a.table.mean_len);
   unsigned char* flag = reinterpret_cast<unsigned char*>(live + cap);
   unsigned char* keep = flag + D;
 
@@ -336,38 +292,11 @@ __global__ void __launch_bounds__(kThreads) slam_init_kernel(const Args a) {
 
   // ---- set-up: this block's rows of the covariance; the leader stages
   // the mean and the masks and copies the landmark fields ----
-#pragma unroll
-  for (int k = 0; k < kMaxBlocks; ++k)  // constant indices into the parameters
-    if (tid == k && k < a.nblocks) s_blocks[k] = a.blocks[k];
-  {
-    constexpr int kUnroll = 8;
-    const int total = nr * D;
-    for (int e0 = tid; e0 < total; e0 += kThreads * kUnroll) {
-      T v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int e = e0 + u * kThreads;
-        if (e < total) v[u] = cov_in[static_cast<size_t>(rank + (e / D) * n) * D + e % D];
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int e = e0 + u * kThreads;
-        if (e < total) P[static_cast<size_t>(rank + (e / D) * n) * D + e % D] = v[u];
-      }
-    }
-  }
+  load_table(s_blocks, a.table);
+  copy_values(P, cov_in, nr * D, [&](int e) { return static_cast<size_t>(rank + (e / D) * n) * D + e % D; });
   __syncthreads();
   if (leader) {
-    for (int i = tid; i < a.mean_len; i += kThreads) {
-      int k = 0;
-      while (i >= s_blocks[k].off + s_blocks[k].rows * s_blocks[k].width) ++k;
-      const Block& blk = s_blocks[k];
-      mean[i] = static_cast<const T*>(blk.in)[static_cast<size_t>(seq) * blk.rows * blk.width + i - blk.off];
-    }
-    for (int row = tid; row < a.rows; row += kThreads) {
-      const Block& blk = s_blocks[block_of_row(s_blocks, row)];
-      keep[row] = blk.mask < 0 || a.masks[blk.mask][static_cast<size_t>(seq) * blk.rows + row - blk.row0];
-    }
+    stage_mean(mean, keep, s_blocks, a.table, seq);
     for (int i = tid; i < 3 * S; i += kThreads)
       static_cast<T*>(a.fej_out)[seq * 3 * S + i] = static_cast<const T*>(a.fej_in)[seq * 3 * S + i];
     for (int i = tid; i < 3 * S; i += kThreads)
@@ -690,19 +619,8 @@ __global__ void __launch_bounds__(kThreads) slam_init_kernel(const Args a) {
         }
       }
     }
-    if (leader) {  // inject dx: one thread a row of a mean block
-      for (int row = tid; row < a.rows; row += kThreads) {
-        if (!keep[row]) continue;
-        const Block& blk = s_blocks[block_of_row(s_blocks, row)];
-        T* x = mean + blk.off + (row - blk.row0) * blk.width;
-        const int e = blk.err_off + (row - blk.row0) * blk.err_stride;
-        if (blk.quat) {
-          quat_inject(x, ldcg(dxw + e), ldcg(dxw + e + 1), ldcg(dxw + e + 2));
-        } else {
-          for (int j = 0; j < blk.width; ++j) x[j] += ldcg(dxw + e + j);
-        }
-      }
-    }
+    if (leader)  // inject dx: one thread a row of a mean block
+      INJECT_ROWS(mean, keep, s_blocks, a.table.rows, [&](int e) { return ldcg(dxw + e); });
     cluster.sync();
     lo = acc + 1;
   }
@@ -710,31 +628,10 @@ __global__ void __launch_bounds__(kThreads) slam_init_kernel(const Args a) {
   // ---- write back: every mean block and the landmark mask ----
   if (leader) {
     __syncthreads();
-    for (int i = tid; i < a.mean_len; i += kThreads) {
-      int k = 0;
-      while (i >= s_blocks[k].off + s_blocks[k].rows * s_blocks[k].width) ++k;
-      const Block& blk = s_blocks[k];
-      static_cast<T*>(blk.out)[static_cast<size_t>(seq) * blk.rows * blk.width + i - blk.off] = mean[i];
-    }
+    store_mean(mean, s_blocks, a.table.mean_len, seq);
     const Block& sb = s_blocks[a.slam_block];
     for (int s = tid; s < S; s += kThreads) a.slam_valid_out[seq * S + s] = keep[sb.row0 + s];
   }
-}
-
-// Opts `kernel` in to the block's whole shared memory less its static
-// part, once, and leaves in `max_dynamic` the dynamic bytes it may take.
-// The first call comes before any capture: a graph capture of the kernel
-// follows an eager run of the same step.
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int& max_dynamic) {
-  if (max_dynamic > 0) return cudaSuccess;
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-  if (e != cudaSuccess) return e;
-  const int bytes = kMaxSmem - static_cast<int>(attr.sharedSizeBytes);
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) max_dynamic = bytes;
-  return e;
 }
 
 template <typename T>
@@ -768,17 +665,17 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
 // `ints` and `ptrs` as `update/slam.py` `kernel_ints` / `_launch` lay them out:
 //   ints: is_double, batch, work bytes a sequence, dim, Fc, M, live_cap,
 //         slam_off, max_slam, freeze (the single-depth representation), the cluster
-//         size, the table index of slam_p, nblocks, then per block quat,
-//         rows, width, err_off, err_stride, mask (-1, or 0..2 into the masks);
+//         size, the table index of slam_p, then the table (`parse_table`);
 //   ptrs: cov_in, cov_out, hx, hf, res, thresh (float64), active, slots,
 //         ids, vals0, anchor_slot, clones_valid, slam_valid, anchors_valid,
 //         slam_valid_out, slam_p_fej in and out, slam_id, slam_anchor_slot
 //         and slam_anchor_cam in, then out, inited, chi2, work, then per
-//         block its input and its output.
+//         block its input and its output;
+//   reals: sigma2.
 // Every tensor holds `batch` sequences back to back; `work` holds a
 // sequence's workspace each. Returns cudaGetLastError() after the launch
 // (or cudaErrorInvalidValue for a table or shape the kernel does not take).
-extern "C" int uvio_slam_init(const int64_t* ptrs, const int* ints, double sigma2, cudaStream_t stream) {
+extern "C" int uvio_slam_init(const int64_t* ptrs, const int* ints, const double* reals, cudaStream_t stream) {
   Args a{};
   const int batch = ints[1];
   a.work_bytes = ints[2];
@@ -791,11 +688,10 @@ extern "C" int uvio_slam_init(const int64_t* ptrs, const int* ints, double sigma
   a.freeze = ints[9];
   a.cluster = ints[10];
   a.slam_block = ints[11];
-  a.nblocks = ints[12];
-  a.sigma2 = sigma2;
+  a.sigma2 = reals[0];
   if (batch < 1 || a.dim < 1 || a.fc < 1 || a.fc > kMaxCands || a.m_rows < 4 || a.m_rows > kMaxRows ||
-      a.live_cap < 1 || a.live_cap > a.dim || a.max_slam < 1 || a.cluster < 1 || a.cluster > kMaxCluster || a.cluster > a.fc || a.nblocks < 1 ||
-      a.nblocks > kMaxBlocks || a.slam_block < 0 || a.slam_block >= a.nblocks)
+      a.live_cap < 1 || a.live_cap > a.dim || a.max_slam < 1 || a.cluster < 1 || a.cluster > kMaxCluster ||
+      a.cluster > a.fc || a.slam_block < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int p = 0;
   a.cov_in = reinterpret_cast<const void*>(ptrs[p++]);
@@ -809,7 +705,8 @@ extern "C" int uvio_slam_init(const int64_t* ptrs, const int* ints, double sigma
   a.ids = reinterpret_cast<const int64_t*>(ptrs[p++]);
   a.vals0 = reinterpret_cast<const void*>(ptrs[p++]);
   a.anchor_slot = reinterpret_cast<const int64_t*>(ptrs[p++]);
-  for (int k = 0; k < 3; ++k) a.masks[k] = reinterpret_cast<const bool*>(ptrs[p++]);
+  const int64_t* masks = ptrs + p;
+  p += 3;
   a.slam_valid_out = reinterpret_cast<bool*>(ptrs[p++]);
   a.fej_in = reinterpret_cast<const void*>(ptrs[p++]);
   a.fej_out = reinterpret_cast<void*>(ptrs[p++]);
@@ -818,14 +715,9 @@ extern "C" int uvio_slam_init(const int64_t* ptrs, const int* ints, double sigma
   a.inited = reinterpret_cast<bool*>(ptrs[p++]);
   a.chi2 = reinterpret_cast<void*>(ptrs[p++]);
   a.work = reinterpret_cast<unsigned char*>(ptrs[p++]);
-  for (int k = 0; k < a.nblocks; ++k) {
-    const int* t = ints + 13 + 6 * k;
-    if (t[1] < 1 || t[2] < 1 || t[5] < -1 || t[5] > 2) return static_cast<int>(cudaErrorInvalidValue);
-    a.blocks[k] = Block{reinterpret_cast<const void*>(ptrs[p + 2 * k]), reinterpret_cast<void*>(ptrs[p + 2 * k + 1]),
-                        t[0], t[1], t[2], t[3], t[4], t[5], a.mean_len, a.rows};
-    a.mean_len += t[1] * t[2];
-    a.rows += t[1];
-  }
-  if (a.blocks[a.slam_block].rows != a.max_slam) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = parse_table(ints + 12, masks, ptrs + p, a.table);
+  if (rc != 0) return rc;
+  if (a.slam_block >= a.table.nblocks || a.table.blocks[a.slam_block].rows != a.max_slam)
+    return static_cast<int>(cudaErrorInvalidValue);
   return ints[0] ? launch<double>(a, batch, stream) : launch<float>(a, batch, stream);
 }

@@ -44,39 +44,24 @@
 //   * the products of the update are rounded before the subtraction (no
 //     FMA contraction), as the plain version's outer product is.
 
-#include <cmath>
-#include <cstdint>
-
-#include <cuda_runtime.h>
+#include "mean_table.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kMaxBlocks = 24;  // mean blocks in the table
-constexpr int kMaxNnz = 14;     // nonzeros of one range's H
-constexpr int kMaxSmem = 232448;
-
-struct Block {
-  const void* in;
-  void* out;
-  int quat, rows, width, err_off, err_stride, mask;
-  int off, row0;  // its first value in the staged mean, its first row among all blocks' rows
-};
+constexpr int kMaxNnz = 14;  // nonzeros of one range's H
 
 struct Args {
   const void* cov_in;
   void* cov_out;
   const void* lever_in;
-  const bool* masks[3];  // clones_valid, slam_valid, anchors_valid
   const void* ranges;
   const bool* range_mask;
   bool* accepted;
   void* chi2;
   int dim, anchors, theta_off, p_off, lever_off, anchor_off;
-  int q_block, p_block, lever_block, ap_block, ag_block, aa_block, nblocks;
-  int mean_len, rows;  // values and rows of all blocks together
+  int q_block, p_block, lever_block, ap_block, ag_block, aa_block;
   double sigma2, thresh;
-  Block blocks[kMaxBlocks];
+  Table table;
 };
 
 // Dynamic shared memory, in values of T: P H^T (D), K (D), the mean
@@ -84,57 +69,9 @@ struct Args {
 // bytes: each block row's mask (rows) and each slot's validity (A).
 template <typename T>
 size_t smem_bytes(const Args& a, bool cov) {
-  const size_t values = 2 * static_cast<size_t>(a.dim) + a.mean_len + a.anchors +
+  const size_t values = 2 * static_cast<size_t>(a.dim) + a.table.mean_len + a.anchors +
                         (cov ? static_cast<size_t>(a.dim) * a.dim : 0);
-  return values * sizeof(T) + a.rows + a.anchors;
-}
-
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-
-// the block holding row `row` among all blocks' rows
-__device__ __forceinline__ int block_of_row(const Block* blocks, int row) {
-  int k = 0;
-  while (row >= blocks[k].row0 + blocks[k].rows) ++k;
-  return k;
-}
-
-// q <- quat_norm(dq (x) q), dq = quat_norm([dth / 2, 1]) (JPL, w last, w >= 0)
-template <typename T>
-__device__ void quat_inject(T* q, T dx, T dy, T dz) {
-  T e[4] = {T(0.5) * dx, T(0.5) * dy, T(0.5) * dz, T(1)};
-  T n = sqrt(e[0] * e[0] + e[1] * e[1] + e[2] * e[2] + e[3] * e[3]);
-  for (int i = 0; i < 4; ++i) e[i] /= n;
-  if (e[3] < T(0))
-    for (int i = 0; i < 4; ++i) e[i] = -e[i];
-  const T pv[3] = {q[0], q[1], q[2]}, pw = q[3];
-  T r[4];
-  r[0] = e[3] * pv[0] + pw * e[0] - (e[1] * pv[2] - e[2] * pv[1]);
-  r[1] = e[3] * pv[1] + pw * e[1] - (e[2] * pv[0] - e[0] * pv[2]);
-  r[2] = e[3] * pv[2] + pw * e[2] - (e[0] * pv[1] - e[1] * pv[0]);
-  r[3] = e[3] * pw - (e[0] * pv[0] + e[1] * pv[1] + e[2] * pv[2]);
-  n = sqrt(r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + r[3] * r[3]);
-  const T s = r[3] / n < T(0) ? -n : n;
-  for (int i = 0; i < 4; ++i) q[i] = r[i] / s;
-}
-
-// dst[i] = src[i] for i < n, kUnroll loads in flight a thread
-template <typename T>
-__device__ __forceinline__ void copy_values(T* dst, const T* src, int n) {
-  constexpr int kUnroll = 8;
-  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kUnroll) {
-    T v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * kThreads;
-      if (i < n) v[u] = src[i];
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * kThreads;
-      if (i < n) dst[i] = v[u];
-    }
-  }
+  return values * sizeof(T) + a.table.rows + a.anchors;
 }
 
 template <typename T, bool kSmem>
@@ -147,39 +84,28 @@ __global__ void __launch_bounds__(kThreads) uwb_update_kernel(const Args a) {
   __shared__ int s_nnz, s_go;
   __shared__ T s_r, s_l;
 
-  const int D = a.dim, A = a.anchors, nb = a.nblocks, b = blockIdx.x, tid = threadIdx.x;
+  const int D = a.dim, A = a.anchors, b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   T* pht = reinterpret_cast<T*>(smem);
   T* kg = pht + D;
   T* mean = kg + D;
-  T* ranges = mean + a.mean_len;
+  T* ranges = mean + a.table.mean_len;
   T* cov_staged = ranges + A;
   unsigned char* keep = reinterpret_cast<unsigned char*>(cov_staged + (kSmem ? D * D : 0));
-  unsigned char* valid = keep + a.rows;
+  unsigned char* valid = keep + a.table.rows;
   const T* cov_in = static_cast<const T*>(a.cov_in) + static_cast<size_t>(b) * D * D;
   T* cov_out = static_cast<T*>(a.cov_out) + static_cast<size_t>(b) * D * D;
   T* P = kSmem ? cov_staged : cov_out;
 
   // ---- stage: the block table, the covariance, the mean, the ranges,
   // the masks, all loads in flight together ----
-#pragma unroll
-  for (int k = 0; k < kMaxBlocks; ++k)  // constant indices into the parameters
-    if (tid == k && k < nb) s_blocks[k] = a.blocks[k];
+  load_table(s_blocks, a.table);
   __syncthreads();
-  copy_values(P, cov_in, D * D);
-  for (int i = tid; i < a.mean_len; i += kThreads) {
-    int k = 0;
-    while (i >= s_blocks[k].off + s_blocks[k].rows * s_blocks[k].width) ++k;
-    const Block& blk = s_blocks[k];
-    mean[i] = static_cast<const T*>(blk.in)[static_cast<size_t>(b) * blk.rows * blk.width + i - blk.off];
-  }
-  for (int row = tid; row < a.rows; row += kThreads) {
-    const Block& blk = s_blocks[block_of_row(s_blocks, row)];
-    keep[row] = blk.mask < 0 || a.masks[blk.mask][static_cast<size_t>(b) * blk.rows + row - blk.row0];
-  }
+  copy_values(P, cov_in, D * D, [](int i) { return i; });
+  stage_mean(mean, keep, s_blocks, a.table, b);
   for (int s = tid; s < A; s += kThreads) {
     ranges[s] = static_cast<const T*>(a.ranges)[b * A + s];
-    valid[s] = a.range_mask[b * A + s] && a.masks[2][b * A + s];
+    valid[s] = a.range_mask[b * A + s] && a.table.masks[2][b * A + s];
   }
   if (tid < 3 && a.lever_block < 0) s_lever[tid] = static_cast<const T*>(a.lever_in)[b * 3 + tid];
   __syncthreads();
@@ -298,42 +224,13 @@ __global__ void __launch_bounds__(kThreads) uwb_update_kernel(const Args a) {
       }
     }
     // ---- inject dx = K r: one thread a row of a mean block ----
-    for (int row = tid; row < a.rows; row += kThreads) {
-      if (!keep[row]) continue;
-      const Block& blk = s_blocks[block_of_row(s_blocks, row)];
-      T* x = mean + blk.off + (row - blk.row0) * blk.width;
-      const int e = blk.err_off + (row - blk.row0) * blk.err_stride;
-      if (blk.quat) {
-        quat_inject(x, mul_rn(kg[e], r), mul_rn(kg[e + 1], r), mul_rn(kg[e + 2], r));
-      } else {
-        for (int j = 0; j < blk.width; ++j) x[j] += mul_rn(kg[e + j], r);
-      }
-    }
+    INJECT_ROWS(mean, keep, s_blocks, a.table.rows, [&](int e) { return mul_rn(kg[e], r); });
     __syncthreads();
   }
 
   // ---- write back: the covariance when staged, every mean block ----
-  if (kSmem) copy_values(cov_out, P, D * D);
-  for (int i = tid; i < a.mean_len; i += kThreads) {
-    int k = 0;
-    while (i >= s_blocks[k].off + s_blocks[k].rows * s_blocks[k].width) ++k;
-    const Block& blk = s_blocks[k];
-    static_cast<T*>(blk.out)[static_cast<size_t>(b) * blk.rows * blk.width + i - blk.off] = mean[i];
-  }
-}
-
-// Opts `kernel` in to the block's whole shared memory less its static
-// part, once, and leaves in `max_dynamic` the dynamic bytes it may take.
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int& max_dynamic) {
-  if (max_dynamic > 0) return cudaSuccess;
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-  if (e != cudaSuccess) return e;
-  const int bytes = kMaxSmem - static_cast<int>(attr.sharedSizeBytes);
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) max_dynamic = bytes;
-  return e;
+  if (kSmem) copy_values(cov_out, P, D * D, [](int i) { return i; });
+  store_mean(mean, s_blocks, a.table.mean_len, b);
 }
 
 // Whether `a`'s covariance is staged in shared memory (`staged`), and
@@ -381,29 +278,17 @@ int parse(const int* ints, const int64_t* ptrs, Args& a) {
   a.ap_block = ints[11];
   a.ag_block = ints[12];
   a.aa_block = ints[13];
-  a.nblocks = ints[14];
-  if (a.nblocks < 1 || a.nblocks > kMaxBlocks || ints[1] < 1 || a.dim < 1 || a.anchors < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (ints[1] < 1 || a.dim < 1 || a.anchors < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (ptrs) {
     a.cov_in = reinterpret_cast<const void*>(ptrs[0]);
     a.cov_out = reinterpret_cast<void*>(ptrs[1]);
     a.lever_in = reinterpret_cast<const void*>(ptrs[2]);
-    for (int i = 0; i < 3; ++i) a.masks[i] = reinterpret_cast<const bool*>(ptrs[3 + i]);
     a.ranges = reinterpret_cast<const void*>(ptrs[6]);
     a.range_mask = reinterpret_cast<const bool*>(ptrs[7]);
     a.accepted = reinterpret_cast<bool*>(ptrs[8]);
     a.chi2 = reinterpret_cast<void*>(ptrs[9]);
   }
-  for (int k = 0; k < a.nblocks; ++k) {
-    const int* t = ints + 15 + 6 * k;
-    if (t[1] < 1 || t[2] < 1 || t[5] < -1 || t[5] > 2) return static_cast<int>(cudaErrorInvalidValue);
-    a.blocks[k] = Block{ptrs ? reinterpret_cast<const void*>(ptrs[10 + 2 * k]) : nullptr,
-                        ptrs ? reinterpret_cast<void*>(ptrs[11 + 2 * k]) : nullptr,
-                        t[0], t[1], t[2], t[3], t[4], t[5], a.mean_len, a.rows};
-    a.mean_len += t[1] * t[2];
-    a.rows += t[1];
-  }
-  return 0;
+  return parse_table(ints + 14, ptrs ? ptrs + 3 : nullptr, ptrs ? ptrs + 10 : nullptr, a.table);
 }
 
 }  // namespace
@@ -412,22 +297,21 @@ int parse(const int* ints, const int64_t* ptrs, Args& a) {
 //   ints: is_double, batch, dim, anchors, theta_off, p_off, lever_off (-1:
 //         not in the error state), anchor_off, the table indices of q, p,
 //         the lever arm (-1: read lever_in), anchors_p, anchors_gamma,
-//         anchors_alpha, nblocks, then per block quat, rows, width,
-//         err_off, err_stride, mask (-1, or 0..2 into the masks);
+//         anchors_alpha, then the table (`parse_table`);
 //   ptrs: cov_in, cov_out, lever_in, clones_valid, slam_valid,
 //         anchors_valid, ranges, range_mask, accepted, chi2, then per
-//         block its input and its output.
+//         block its input and its output;
+//   reals: sigma2, the chi2 threshold.
 // Every tensor holds `batch` sequences back to back. The covariance is
 // staged in shared memory when it fits (`uvio_uwb_shared_memory`).
 // Returns cudaGetLastError() after the launch (or cudaErrorInvalidValue
 // for a table or shape the kernel does not take).
-extern "C" int uvio_uwb_update(const int64_t* ptrs, const int* ints, double sigma2, double thresh,
-                               cudaStream_t stream) {
+extern "C" int uvio_uwb_update(const int64_t* ptrs, const int* ints, const double* reals, cudaStream_t stream) {
   Args a;
   const int rc = parse(ints, ptrs, a);
   if (rc != 0) return rc;
-  a.sigma2 = sigma2;
-  a.thresh = thresh;
+  a.sigma2 = reals[0];
+  a.thresh = reals[1];
   return ints[0] ? launch<double>(a, ints[1], stream) : launch<float>(a, ints[1], stream);
 }
 

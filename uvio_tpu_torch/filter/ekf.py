@@ -103,6 +103,15 @@ def inject_table(layout: StateLayout) -> tuple:
     return tuple(t)
 
 
+def table_ints(table) -> list:
+    """`table` as the filter kernels read it (`csrc/mean_table.cuh`
+    `parse_table`): the number of blocks, then each block's quat, rows,
+    width, err_off, err_stride and mask (an index into `MASKS`, -1 for
+    none). The kernels refuse a table they do not take."""
+    return [len(table), *[v for b in table for v in (int(b.quat), b.rows, b.width, b.err_off, b.err_stride,
+                                                     MASKS.index(b.mask) if b.mask else -1)]]
+
+
 def inject(state: FilterState, layout: StateLayout, dx: torch.Tensor) -> FilterState:
     """Apply an error-state correction to every mean block of
     `inject_table` (quaternions by the error quaternion's product, the

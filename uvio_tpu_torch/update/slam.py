@@ -28,8 +28,6 @@ rule runs one cluster of blocks a sequence, so a batch is one launch too.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import launches
@@ -42,6 +40,7 @@ from ..filter.ekf import (
     ekf_update,
     initialize_invertible_block,
     inject_table,
+    table_ints,
 )
 from ..math import quat_to_rot, skew
 from ..math.chi2 import chi2_95
@@ -279,11 +278,11 @@ def slam_delayed_init(
     M = Hx_p.shape[1]
     thresh = chi2_mult * chi2_95(torch.clamp(rm_p.sum(1), min=1), max_dof=M)
     table = inject_table(L)
-    cov, slam_valid, fej, *meta_fields, inited, chi2 = _Kernel.apply(
-        state.cov, Hx_p, H_f_p, res_p, thresh, active, target_slots.to(torch.int64), cand_ids.to(torch.int64),
+    cov, slam_valid, fej, *meta_fields, inited, chi2 = launches.Launch.apply(
+        _launch, state.cov, Hx_p, H_f_p, res_p, thresh, active, target_slots.to(torch.int64), cand_ids.to(torch.int64),
         vals0, anchor_slot, [getattr(state, m) for m in MASKS], state.slam_p_fej,
         [getattr(state, f) for f in META], [getattr(state, b.field) for b in table],
-        kernel_ints(L, Fc=obs_uv.shape[0]), float(sigma_pix) ** 2)
+        kernel_ints(L, Fc=obs_uv.shape[0]), (float(sigma_pix) ** 2,))
     meta, fields = meta_fields[:len(META)], meta_fields[len(META):]
     new = state.replace(cov=cov, slam_valid=slam_valid, slam_p_fej=fej, **dict(zip(META, meta)),
                         **{b.field: f for b, f in zip(table, fields)})
@@ -312,10 +311,9 @@ def kernel_ints(layout: StateLayout, Fc: int) -> list:
     rows, 2 K C), the most columns a candidate's H_x touches (the camera
     calibration and clone columns, `feature_system`'s support), slam_off,
     max_slam, whether the bearing freezes (the single-depth
-    representation), the cluster size, the table row of slam_p, the number
-    of blocks, then each block of `inject_table` as `update/uwb.py`
-    `kernel_ints` gives it. The kernel refuses a table or shape it does
-    not take."""
+    representation), the cluster size, the table row of slam_p, then the
+    table (`filter.ekf.table_ints`). The kernel refuses a table or shape
+    it does not take."""
     L = layout
     if L.max_slam < 1:
         raise ValueError("the SLAM init kernel needs 1 or more landmark slots")
@@ -323,9 +321,7 @@ def kernel_ints(layout: StateLayout, Fc: int) -> list:
     row = {b.field: i for i, b in enumerate(table)}
     return [L.dim, Fc, 2 * L.max_clones * L.num_cams, L.slam_off - L.calib_off, L.slam_off, L.max_slam,
             int(L.slam_rep == ANCHORED_INVERSE_DEPTH_SINGLE),
-            cluster_size(Fc), row["slam_p"], len(table),
-            *[v for b in table for v in (int(b.quat), b.rows, b.width, b.err_off, b.err_stride,
-                                         MASKS.index(b.mask) if b.mask else -1)]]
+            cluster_size(Fc), row["slam_p"], *table_ints(table)]
 
 
 def work_bytes(D: int, Fc: int, M: int, itemsize: int) -> int:
@@ -339,92 +335,33 @@ def work_bytes(D: int, Fc: int, M: int, itemsize: int) -> int:
     return (b + 15) // 16 * 16
 
 
-def _check(name, t, dtype, numel, device):
-    if t.dtype != dtype:
-        raise TypeError(f"slam_delayed_init {name}: expected {dtype}, got {t.dtype}")
-    if t.numel() != numel:
-        raise ValueError(f"slam_delayed_init {name}: expected {numel} values, got shape {tuple(t.shape)}")
-    if t.device != device or not t.is_contiguous():
-        raise ValueError(f"slam_delayed_init {name}: must be contiguous on {device}")
-
-
 def _launch(batch, cov, hx, hf, res, thresh, active, slots, ids, vals0, anchor, masks, fej, meta, fields, ints,
-            sigma2):
+            reals):
     """One launch for `batch` sequences held back to back in each tensor:
     (cov, slam_valid, slam_p_fej, *meta, *fields, inited, chi2), freshly
     allocated."""
-    from .. import _build
-
+    launches.check_table("slam_delayed_init", batch, cov, masks, fields, ints[9:])
+    if len(meta) != len(META):
+        raise ValueError(f"slam_delayed_init: {len(meta)} landmark fields for {len(META)}")
     dtype, device = cov.dtype, cov.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"slam_delayed_init: a float32 or float64 covariance, got {dtype}")
-    D, Fc, M, S, nblocks = ints[0], ints[1], ints[2], ints[5], ints[9]
-    if len(fields) != nblocks or len(masks) != len(MASKS) or len(meta) != len(META):
-        raise ValueError(f"slam_delayed_init: {len(fields)} mean blocks, {len(masks)} masks and {len(meta)} "
-                         f"landmark fields for a table of {nblocks}, {len(MASKS)} and {len(META)}")
-    _check("cov", cov, dtype, batch * D * D, device)
-    _check("H_x", hx, dtype, batch * Fc * M * D, device)
-    _check("H_f", hf, dtype, batch * Fc * M * 3, device)
-    _check("res", res, dtype, batch * Fc * M, device)
-    _check("thresh", thresh, torch.float64, batch * Fc, device)
-    _check("active", active, torch.bool, batch * Fc, device)
-    _check("target_slots", slots, torch.int64, batch * Fc, device)
-    _check("cand_ids", ids, torch.int64, batch * Fc, device)
-    _check("vals0", vals0, dtype, batch * Fc * 3, device)
-    _check("clone_head", anchor, torch.int64, batch, device)
-    _check("slam_valid", masks[1], torch.bool, batch * S, device)
-    _check("slam_p_fej", fej, dtype, batch * S * 3, device)
-    for name, t in zip(META, meta):
-        _check(name, t, torch.int64, batch * S, device)
-    for k, f in enumerate(fields):
-        _, rows, width, _, _, mask = ints[10 + 6 * k: 16 + 6 * k]
-        _check(f"block {k}", f, dtype, batch * rows * width, device)
-        if mask >= 0:
-            _check(MASKS[mask], masks[mask], torch.bool, batch * rows, device)
+    D, Fc, M, S = ints[0], ints[1], ints[2], ints[5]
+    launches.check("slam_delayed_init", device, ("cov", cov, dtype, batch * D * D),
+                   ("H_x", hx, dtype, batch * Fc * M * D), ("H_f", hf, dtype, batch * Fc * M * 3),
+                   ("res", res, dtype, batch * Fc * M), ("thresh", thresh, torch.float64, batch * Fc),
+                   ("active", active, torch.bool, batch * Fc), ("target_slots", slots, torch.int64, batch * Fc),
+                   ("cand_ids", ids, torch.int64, batch * Fc), ("vals0", vals0, dtype, batch * Fc * 3),
+                   ("clone_head", anchor, torch.int64, batch), ("slam_valid", masks[1], torch.bool, batch * S),
+                   ("slam_p_fej", fej, dtype, batch * S * 3),
+                   *[(n, t, torch.int64, batch * S) for n, t in zip(META, meta)])
     cov_out = torch.empty_like(cov)
     valid_out = torch.empty_like(masks[1])
     fej_out = torch.empty_like(fej)
     meta_out = [torch.empty_like(t) for t in meta]
-    outs = [torch.empty_like(f) for f in fields]
     inited = torch.empty_like(active)
     chi2 = torch.empty((batch * Fc,), dtype=dtype, device=device).reshape(active.shape)
     per_seq = work_bytes(D, Fc, M, cov.element_size())
     work = torch.empty((batch * per_seq,), dtype=torch.uint8, device=device)
     ptrs = [cov, cov_out, hx, hf, res, thresh, active, slots, ids, vals0, anchor, *masks, valid_out, fej, fej_out,
-            *meta, *meta_out, inited, chi2, work, *[t for pair in zip(fields, outs) for t in pair]]
-    args = [int(dtype == torch.float64), batch, per_seq, *ints]
-    rc = _build.load().uvio_slam_init(
-        (ctypes.c_int64 * len(ptrs))(*[t.data_ptr() for t in ptrs]), (ctypes.c_int * len(args))(*args),
-        float(sigma2), torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"uvio_slam_init launch failed: cudaError {rc}")
-    launches.launch_counts["slam_init"] += 1
+            *meta, *meta_out, inited, chi2, work]
+    outs = launches.launch("slam_init", batch, ptrs, fields, [per_seq, *ints], reals)
     return (cov_out, valid_out, fej_out, *meta_out, *outs, inited, chi2)
-
-
-class _Kernel(torch.autograd.Function):
-    """The launch as an autograd function, for its `vmap` rule: under
-    `torch.func.vmap` every input gets its batch axis first (broadcast
-    where it has none) and one launch runs `info.batch_size` clusters, as
-    `update/uwb.py`'s does."""
-
-    @staticmethod
-    def forward(*args):
-        return _launch(1, *args)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def vmap(info, in_dims, *args):
-        B = info.batch_size
-
-        def front(x, d):
-            if isinstance(x, list):
-                return [front(y, e) for y, e in zip(x, d)]
-            return (x.movedim(d, 0) if d is not None else x.expand(B, *x.shape)).contiguous()
-
-        n = len(args) - 2
-        out = _launch(B, *[front(x, d) for x, d in zip(args[:n], in_dims[:n])], *args[n:])
-        return out, (0,) * len(out)

@@ -17,9 +17,10 @@ anchors is static), and each accept decision is a select.
 version (a general one-row `ekf_update` a slot), on CPU tensors. The
 kernel changes the covariance and the mean blocks of `filter.ekf`'s
 `inject_table`, the list `inject` runs over: the table, with the layout's
-offsets (`kernel_ints`), is what it is given in place of the layout. Under `torch.func.vmap` (the batched full step) the
-launch's batch rule (`_Kernel.vmap`) runs one block a sequence, so a batch
-is one launch too.
+offsets (`kernel_ints`), is what it is given in place of the layout.
+Under `torch.func.vmap` (the batched full step) the launch's batch rule
+(`launches.Launch`) runs one block a sequence, so a batch is one launch
+too.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import ctypes
 import torch
 
 from .. import launches
-from ..filter.ekf import MASKS, ekf_update, inject_table
+from ..filter.ekf import MASKS, ekf_update, inject_table, table_ints
 from ..math import quat_to_rot, skew
 from ..math.chi2 import CHI2_95, chi2_95
 from ..types.layout import StateLayout
@@ -108,10 +109,10 @@ def uwb_update(state, layout, ranges, range_mask, sigma_range=0.1, chi2_mult=1.0
     if not launches.route(state.cov, ranges, range_mask):
         return uwb_update_ref(state, layout, ranges, range_mask, sigma_range, chi2_mult)
     table = inject_table(layout)
-    cov, *fields, accepted, chi2 = _Kernel.apply(
-        state.cov, state.uwb_p_IinU, ranges.to(state.cov.dtype), range_mask,
+    cov, *fields, accepted, chi2 = launches.Launch.apply(
+        _launch, state.cov, state.uwb_p_IinU, ranges.to(state.cov.dtype), range_mask,
         [getattr(state, m) for m in MASKS], [getattr(state, b.field) for b in table], kernel_ints(layout),
-        float(sigma_range) ** 2, float(chi2_mult * CHI2_95[1]))
+        (float(sigma_range) ** 2, float(chi2_mult * CHI2_95[1])))
     new = state.replace(cov=cov, **{b.field: f for b, f in zip(table, fields)})
     return new, {"accepted": accepted, "chi2": chi2}
 
@@ -121,29 +122,22 @@ def uwb_update(state, layout, ranges, range_mask, sigma_range=0.1, chi2_mult=1.0
 # ---------------------------------------------------------------------------
 
 
-# the kernel's table holds at most this many blocks
-MAX_BLOCKS = 24
-
-
 def kernel_ints(layout: StateLayout) -> list:
     """The layout's part of the kernel's int arguments (`uvio_uwb_update`
     in `csrc/uwb_update.cu`, from `dim` on): dim, anchors, the error
     offsets of theta, p, the lever arm (-1 when it is not in the error
     state) and the anchors, the table rows of q, p, the lever arm (-1: it
     is read from its input), anchors_p, anchors_gamma and anchors_alpha,
-    the number of blocks, then each block's quat, rows, width, err_off,
-    err_stride and mask (an index into `MASKS`, -1 for none)."""
+    then the table (`filter.ekf.table_ints`)."""
     L = layout
+    if L.max_anchors < 1:
+        raise ValueError("the UWB kernel takes 1 or more anchors")
     table = inject_table(L)
-    if L.max_anchors < 1 or len(table) > MAX_BLOCKS:
-        raise ValueError(f"the UWB kernel takes 1 or more anchors and at most {MAX_BLOCKS} mean blocks")
     row = {b.field: i for i, b in enumerate(table)}
     lever_off = L.calib_uwb_off if L.calib_uwb_extrinsics else -1
     return [L.dim, L.max_anchors, L.theta_off, L.p_off, lever_off, L.anchor_off,
             row["q"], row["p"], row.get("uwb_p_IinU", -1), row["anchors_p"], row["anchors_gamma"],
-            row["anchors_alpha"], len(table),
-            *[v for b in table for v in (int(b.quat), b.rows, b.width, b.err_off, b.err_stride,
-                                         MASKS.index(b.mask) if b.mask else -1)]]
+            row["anchors_alpha"], *table_ints(table)]
 
 
 def uses_shared_memory(layout: StateLayout, dtype: torch.dtype) -> bool:
@@ -160,76 +154,15 @@ def uses_shared_memory(layout: StateLayout, dtype: torch.dtype) -> bool:
     return bool(staged.value)
 
 
-def _check(name, t, dtype, numel, device):
-    if t.dtype != dtype:
-        raise TypeError(f"uwb_update {name}: expected {dtype}, got {t.dtype}")
-    if t.numel() != numel:
-        raise ValueError(f"uwb_update {name}: expected {numel} values, got shape {tuple(t.shape)}")
-    if t.device != device or not t.is_contiguous():
-        raise ValueError(f"uwb_update {name}: must be contiguous on {device}")
-
-
-def _launch(batch, cov, lever, ranges, range_mask, masks, fields, ints, sigma2, thresh):
+def _launch(batch, cov, lever, ranges, range_mask, masks, fields, ints, reals):
     """One launch for `batch` sequences held back to back in each tensor:
     (cov, *fields, accepted, chi2), freshly allocated."""
-    from .. import _build
-
-    dtype, device = cov.dtype, cov.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"uwb_update: a float32 or float64 covariance, got {dtype}")
-    D, A, nblocks = ints[0], ints[1], ints[12]
-    if len(fields) != nblocks or len(masks) != len(MASKS):
-        raise ValueError(f"uwb_update: {len(fields)} mean blocks and {len(masks)} masks for a table "
-                         f"of {nblocks} and {len(MASKS)}")
-    _check("cov", cov, dtype, batch * D * D, device)
-    _check("lever arm", lever, dtype, batch * 3, device)
-    _check("ranges", ranges, dtype, batch * A, device)
-    _check("range_mask", range_mask, torch.bool, batch * A, device)
-    _check("anchors_valid", masks[2], torch.bool, batch * A, device)
-    for k, f in enumerate(fields):
-        _, rows, width, _, _, mask = ints[13 + 6 * k: 19 + 6 * k]
-        _check(f"block {k}", f, dtype, batch * rows * width, device)
-        if mask >= 0:
-            _check(MASKS[mask], masks[mask], torch.bool, batch * rows, device)
-    cov_out = torch.empty_like(cov)
-    outs = [torch.empty_like(f) for f in fields]
-    accepted = torch.empty_like(range_mask)
-    chi2 = torch.empty_like(ranges)
-    ptrs = [cov, cov_out, lever, *masks, ranges, range_mask, accepted, chi2,
-            *[t for pair in zip(fields, outs) for t in pair]]
-    args = [int(dtype == torch.float64), batch, *ints]
-    rc = _build.load().uvio_uwb_update(
-        (ctypes.c_int64 * len(ptrs))(*[t.data_ptr() for t in ptrs]), (ctypes.c_int * len(args))(*args),
-        float(sigma2), float(thresh), torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"uvio_uwb_update launch failed: cudaError {rc}")
-    launches.launch_counts["uwb_update"] += 1
+    launches.check_table("uwb_update", batch, cov, masks, fields, ints[12:])
+    dtype, device, D, A = cov.dtype, cov.device, ints[0], ints[1]
+    launches.check("uwb_update", device, ("cov", cov, dtype, batch * D * D), ("lever arm", lever, dtype, batch * 3),
+                   ("ranges", ranges, dtype, batch * A), ("range_mask", range_mask, torch.bool, batch * A),
+                   ("anchors_valid", masks[2], torch.bool, batch * A))
+    cov_out, accepted, chi2 = torch.empty_like(cov), torch.empty_like(range_mask), torch.empty_like(ranges)
+    outs = launches.launch("uwb_update", batch, [cov, cov_out, lever, *masks, ranges, range_mask, accepted, chi2],
+                           fields, ints, reals)
     return (cov_out, *outs, accepted, chi2)
-
-
-class _Kernel(torch.autograd.Function):
-    """The launch as an autograd function, for its `vmap` rule: under
-    `torch.func.vmap` every input gets its batch axis first (broadcast
-    where it has none) and one launch runs `info.batch_size` blocks. (A
-    `torch.library` custom operator would do the same, but registering one
-    imports torch's compiler stack, ~14 s on the card's installation.)"""
-
-    @staticmethod
-    def forward(*args):
-        return _launch(1, *args)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def vmap(info, in_dims, *args):
-        B = info.batch_size
-
-        def front(x, d):
-            if isinstance(x, list):
-                return [front(y, e) for y, e in zip(x, d)]
-            return (x.movedim(d, 0) if d is not None else x.expand(B, *x.shape)).contiguous()
-
-        out = _launch(B, *[front(x, d) for x, d in zip(args[:6], in_dims[:6])], *args[6:])
-        return out, (0,) * len(out)
