@@ -763,6 +763,7 @@ def full_step_phase(dev, card):
     st, out = counted(K, [step64], run64, rows)
     uwb_rec, uwb_ok = uwb_launch_record(rows, sum(sum(p.uwb_rows) for p in plans64))
     init_rec, init_ok = slam_init_launch_record(rows, sum(p.slam_init for p in plans64))
+    msckf_rec, msckf_ok = msckf_launch_record(rows, n)
     ref = fx.replays["f64"]
     bad, p_err, tr_err = [], 0.0, 0.0
     for k, (p, tr, info) in enumerate(out):
@@ -777,7 +778,7 @@ def full_step_phase(dev, card):
         p_err = max(p_err, float(np.abs(p.cpu().numpy() - ref["p"][k]).max()))
         tr_err = max(tr_err, abs(float(tr) / float(ref["cov_trace"][k]) - 1.0))
     rec64 = {"phase": "full_step", "precision": "float64", "frames": n, "infos_equal_all": not bad,
-             "max_p_diff_m": p_err, "max_trace_rel_diff": tr_err, **uwb_rec, **init_rec}
+             "max_p_diff_m": p_err, "max_trace_rel_diff": tr_err, **uwb_rec, **init_rec, **msckf_rec}
     log(rec64)
     if bad or not (p_err <= 1e-6 and tr_err <= 1e-6):
         for b in bad:
@@ -788,6 +789,8 @@ def full_step_phase(dev, card):
     if not init_ok:
         raise RuntimeError("full_step float64: not one SLAM init kernel launch a frame with candidates, "
                            "all from replays")
+    if not msckf_ok:
+        raise RuntimeError("full_step float64: not one MSCKF update kernel launch a frame, all from replays")
 
     # ---- float32: the bench precision, held to the JAX float32 replay; the
     # same replay counts what waits for the host inside the steps: nothing
@@ -851,6 +854,7 @@ def full_step_phase(dev, card):
                            f"{len(set(plans))} distinct plans")
     uwb_kernel_timing(dev, card)
     slam_init_kernel_timing(dev, card)
+    msckf_kernel_timing(dev, card)
 
 
 def uwb_kernel_timing(dev, card):
@@ -973,6 +977,72 @@ def slam_init_kernel_timing(dev, card):
                "bound_ms": bound, "bound_by": "bytes", "bytes": cov_bytes, "bound_share_pct": bound / kernel_ms * 100,
                "max_cov_rel_diff": errs["cov"], "max_slam_p_rel_diff": errs["slam_p"],
                "max_rel_diff": errs[worst], "max_rel_diff_field": worst, "card": card}
+        log(rec)
+        recs.append(rec)
+    return recs
+
+
+def msckf_kernel_timing(dev, card):
+    """The MSCKF update kernel (`csrc/msckf_update.cu`) against its plain
+    version `msckf_update_ref` on the corridor cell's layout, the EuRoC
+    cell's, its stereo layout and the replay fixture's frame 3 (the states
+    of tests/test_torch_msckf_kernel.py: 40 features of which an outlier,
+    one seen once and a padding row fail), float64; then by the graph clock
+    the kernel alone (its recorded launch), the whole call (triangulation
+    and the Jacobians too) and the plain version, beside the bound by bytes
+    (the covariance read and written once, the live stacked systems read
+    once). One line a layout."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_msckf_kernel import fixture_case, layout_case
+
+    from uvio_tpu_torch.types.state import FIELDS, state_from_numpy, state_to_numpy
+    from uvio_tpu_torch.update import msckf
+
+    def launch_args(call):
+        seen, launch = [], msckf._launch
+        msckf._launch = lambda batch, *a: (seen.append(a), launch(batch, *a))[1]
+        try:
+            call()
+        finally:
+            msckf._launch = launch
+        return seen[0]
+
+    recs = []
+    for name in ("corridor", "euroc", "stereo", "fixture"):
+        case = fixture_case() if name == "fixture" else layout_case(name)
+        c = dataclasses.replace(case, state=state_from_numpy(state_to_numpy(case.state), dev), uv=case.uv.to(dev),
+                                mask=case.mask.to(dev))
+        L = c.layout
+        call = lambda: msckf.msckf_update(*c.args(), sigma_pix=c.sigma_pix)  # noqa: E731
+        plain = lambda: msckf.msckf_update_ref(*c.args(), sigma_pix=c.sigma_pix)  # noqa: E731
+        (got, gi), (want, wi) = call(), plain()
+        errs = {}
+        for f in FIELDS:
+            x, y = getattr(got, f), getattr(want, f)
+            if x.dtype.is_floating_point and x.numel():
+                errs[f] = float((x - y).abs().max()) / max(float(y.abs().max()), 1.0)
+            elif not torch.equal(x, y):
+                errs[f] = float("inf")
+        worst = max(errs, key=errs.get)
+        same = all(torch.equal(gi[k], wi[k]) for k in ("tri_ok", "kept", "num_used", "cov_ok"))
+        if not (same and errs[worst] <= 1e-10):
+            raise RuntimeError(f"msckf_update kernel against plain, {name}: kept {gi['kept'].tolist()} and "
+                               f"{wi['kept'].tolist()}, {worst} {errs[worst]:.3g}")
+        args = launch_args(call)
+        F, M, W = c.uv.shape[0], 2 * L.max_clones * L.num_cams, L.slam_off - L.calib_off
+        nbytes = (2 * L.dim * L.dim + F * M * (W + 4)) * 8
+        kernel_ms = graph_ms(lambda: msckf._launch(1, *args))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rec = {"phase": "full_step", "part": f"msckf_update kernel, {name} layout, float64", "dim": L.dim,
+               "features": F, "rows": M, "live_columns": W, "kept": int(gi["num_used"]),
+               "kernel_ms": kernel_ms, "ms": graph_ms(call, k=10, replays=5), "plain_ms": graph_ms(plain, k=5, replays=5),
+               "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes, "bound_share_pct": bound / kernel_ms * 100,
+               "max_cov_rel_diff": errs["cov"], "max_rel_diff": errs[worst], "max_rel_diff_field": worst,
+               "card": card}
         log(rec)
         recs.append(rec)
     return recs
@@ -1391,7 +1461,7 @@ def launch_record(K):
     return {**K.launch_counts, **{f"{k}_from_replays": n for k, n in K.replay_counts.items()}}
 
 
-HAND = ("fast9", "lk_track", "lk_level", "uwb_update", "slam_init")
+HAND = ("fast9", "lk_track", "lk_level", "uwb_update", "slam_init", "msckf_update")
 
 
 def counted(K, graphed, fn, rows):
@@ -1438,6 +1508,19 @@ def slam_init_launch_record(rows, init_frames):
     rec = {"slam_init_frames": init_frames, "slam_init_launches": launches,
            "slam_init_from_replays": replayed, "slam_init_first_calls": launches - replayed}
     return rec, init_frames > 0 and launches == init_frames and replays_gate(rows)
+
+
+def msckf_launch_record(rows, frames):
+    """The MSCKF update kernel's launches over `rows` (`counted`) against
+    the frames the full step ran (it runs the update on every frame, as
+    `uvio_tpu`'s does), and whether there is one launch a frame, all from
+    replays but those of each key's first call."""
+    k = HAND.index("msckf_update")
+    launches = sum(total[k] for total, _, _ in rows)
+    replayed = sum(rep[k] for _, rep, _ in rows)
+    rec = {"msckf_frames": frames, "msckf_update_launches": launches,
+           "msckf_update_from_replays": replayed, "msckf_update_first_calls": launches - replayed}
+    return rec, launches == frames and replays_gate(rows)
 
 
 def stage_names(mgr):
@@ -1974,7 +2057,7 @@ def tracker_kernels_vs_plain(K, cam, frames, card):
     plain = device_work()
     T.fast_score, T.lk_track = kernel_fns
     if dict(K.launch_counts) != counts or counts != {"fast9": 2, "lk_track": 1, "lk_level": 0, "uwb_update": 0,
-                                                     "slam_init": 0}:
+                                                     "slam_init": 0, "msckf_update": 0}:
         raise RuntimeError(f"launch counts {counts} then {dict(K.launch_counts)}")
     (s_k, uv_k, ok_k, tr_k, du_k, dk_k, active), (s_p, uv_p, ok_p, tr_p, du_p, dk_p, _) = with_kernels, plain
     both = ok_k & ok_p & active
@@ -2177,7 +2260,8 @@ def slice_phase(K, dev, render_out, card):
     st, infos = run_slice()
     launches = launch_record(K)
     n_steps = len(windows)
-    if dict(K.launch_counts) != {"fast9": n_steps, "lk_track": n_steps, "lk_level": 0, "uwb_update": 0, "slam_init": 0}:
+    if dict(K.launch_counts) != {"fast9": n_steps, "lk_track": n_steps, "lk_level": 0, "uwb_update": 0, "slam_init": 0,
+                                 "msckf_update": n_steps}:
         raise RuntimeError(f"launch counts {launches} for {n_steps} steps")
     cov_ok = [bool(x["cov_ok"].item()) for x in infos]
     used = sum(int(x["num_used"].item()) for x in infos)

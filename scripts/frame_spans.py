@@ -44,7 +44,10 @@ frame (`n_tracked`, `n_lk_lost`, `n_ransac_lost`, `n_spawned`) and
 `residual_ms` less the tracker and the conversion (`frame_residual_ms`).
 Every cell's line also counts, over the window's frames, the SLAM
 delayed-init kernel's launches (`launches.launch_counts`) against the
-frames whose plan had candidates (`slam_cands` in the manager's row).
+frames whose plan had candidates (`slam_cands` in the manager's row), and
+the MSCKF update kernel's launches against the frames with MSCKF features
+(`msckf_feats`; the fused step runs the update on every frame, so a frame
+without features would count as a launch off).
 """
 
 import argparse
@@ -161,12 +164,14 @@ def main(argv=None) -> int:
     def feeding(est, k):
         due, state["due"] = state["due"], None
         inits = launches.launch_counts.get("slam_init", 0)
+        updates = launches.launch_counts.get("msckf_update", 0)
         feed_frame(est, k)
         done = time.perf_counter()
         if due is not None:
             rows.append({"k": k, "due": due, "done": done, "traced": state["profiling"],
                          "spans": dict(est.mgr.last_timing),
-                         "slam_init_launches": launches.launch_counts.get("slam_init", 0) - inits})
+                         "slam_init_launches": launches.launch_counts.get("slam_init", 0) - inits,
+                         "msckf_update_launches": launches.launch_counts.get("msckf_update", 0) - updates})
             if hasattr(est, "tracker"):
                 rows[-1]["tracker"] = dict(est.tracker.last_timing)
                 rows[-1]["convert_s"] = est.frame_timing()["convert_s"]
@@ -215,6 +220,12 @@ def main(argv=None) -> int:
         "frames_with_candidates": sum(r["spans"].get("slam_cands", 0) > 0 for r in window),
         "frames_not_one_launch_a_plan": sum(r["slam_init_launches"] != (r["spans"].get("slam_cands", 0) > 0)
                                             for r in window)}
+    summary["msckf_update"] = {  # the kernel's launches against the frames with features
+        "launches": sum(r["msckf_update_launches"] for r in window),
+        "frames_with_features": sum(r["spans"].get("msckf_feats", 0) > 0 for r in window),
+        "features": statistics.fmean([r["spans"].get("msckf_feats", 0) for r in window]) if window else None,
+        "frames_not_one_launch_a_frame_with_features": sum(
+            r["msckf_update_launches"] != (r["spans"].get("msckf_feats", 0) > 0) for r in window)}
     summary.update(on=args.on, trace=args.trace, seed=args.seed, ranges=state["ranges"],
                    left_out=len(rows) - len(window), card=torch.cuda.get_device_name(0))
     print(json.dumps(summary), flush=True)

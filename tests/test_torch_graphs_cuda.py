@@ -230,7 +230,7 @@ def test_fused_step_graph_equals_eager(dev):
         else:
             gs, gc, gi = step(*g, frames[i + 1], *w, generator=gens[0])
         assert K.launch_counts == {"fast9": 1, "lk_track": 1, "lk_level": 0, "uwb_update": 0,
-                                   "slam_init": 0}, (i, K.launch_counts)
+                                   "slam_init": 0, "msckf_update": 1}, (i, K.launch_counts)
         es, ec, ei = step.eager(*e, frames[i + 1], *w, generator=gens[1])
         _compare((gs, gc, gi), (es, ec, ei), f"fused step {i}", worst)
         g, e = (gs, gc), (es, ec)
@@ -259,7 +259,7 @@ def test_tracker_graph_equals_eager(dev):
         K.reset_launch_counts()
         ids_a, uv_a = a.feed(t, img)
         assert K.launch_counts == {"fast9": 1, "lk_track": 1 if k else 0, "lk_level": 0, "uwb_update": 0,
-                                   "slam_init": 0}, (k, K.launch_counts)
+                                   "slam_init": 0, "msckf_update": 0}, (k, K.launch_counts)
         ids_b, uv_b = b.feed(t, img)
         assert np.array_equal(ids_a, ids_b) and np.array_equal(uv_a, uv_b), k
         assert np.array_equal(a.active, b.active)
@@ -428,7 +428,7 @@ def test_descriptor_tracker_graph_equals_eager(dev):
         K.reset_launch_counts()
         ids_a, uv_a = a.feed(t, img)
         assert K.launch_counts == {"fast9": 1, "lk_track": 0, "lk_level": 0, "uwb_update": 0,
-                                   "slam_init": 0}, (k, K.launch_counts)
+                                   "slam_init": 0, "msckf_update": 0}, (k, K.launch_counts)
         assert K.replay_counts["fast9"] == (0 if k < 2 else 1), (k, K.replay_counts)
         ids_b, uv_b = b.feed(t, img)
         assert np.array_equal(ids_a, ids_b) and np.array_equal(uv_a, uv_b), k
@@ -460,7 +460,7 @@ def test_stereo_tracker_graph_equals_eager(dev):
         K.reset_launch_counts()
         obs_a = a.feed(t, left, right)
         assert K.launch_counts == {"fast9": 1, "lk_track": 2 if k else 1, "lk_level": 0, "uwb_update": 0,
-                                   "slam_init": 0}, (k, K.launch_counts)
+                                   "slam_init": 0, "msckf_update": 0}, (k, K.launch_counts)
         want = {0: (0, 0), 1: (0, 1)}.get(k, (1, 2))
         assert (K.replay_counts["fast9"], K.replay_counts["lk_track"]) == want, (k, K.replay_counts)
         obs_b = b.feed(t, left, right)

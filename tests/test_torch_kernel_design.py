@@ -289,7 +289,8 @@ def test_lk_source_constants_match_the_plain_versions():
     ("uvio_lk_track", "lk_level.cu"), ("uvio_lk_level", "lk_level.cu"),
     ("uvio_fast9", "fast9.cu"), ("uvio_empty_launch", "yardstick.cu"),
     ("uvio_uwb_update", "uwb_update.cu"), ("uvio_uwb_shared_memory", "uwb_update.cu"),
-    ("uvio_slam_init", "slam_init.cu"),
+    ("uvio_slam_init", "slam_init.cu"), ("uvio_msckf_update", "msckf_update.cu"),
+    ("uvio_msckf_work_bytes", "msckf_update.cu"),
 ])
 def test_entry_points_exported_and_bound(entry, source):
     src = _src(source)
@@ -306,7 +307,7 @@ def test_entry_points_exported_and_bound(entry, source):
     _build.bind(lib)
     assert len(fn.argtypes) == n_params
     assert os.path.join(CSRC, source) in _build.sources()
-    if entry in ("uvio_uwb_update", "uvio_slam_init"):  # the filter kernels' one signature
+    if entry in ("uvio_uwb_update", "uvio_slam_init", "uvio_msckf_update"):  # the filter kernels' one signature
         assert " ".join(m.group(1).split()) == ("const int64_t* ptrs, const int* ints, const double* reals, "
                                                 "cudaStream_t stream")
         assert fn.argtypes == [ctypes.c_void_p] * 4
@@ -319,7 +320,8 @@ def test_header_edits_change_the_library_digest(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
-    assert sorted(os.listdir(csrc)) == sorted([*map(os.path.basename, _build.sources()), "mean_table.cuh"])
+    assert sorted(os.listdir(csrc)) == sorted([*map(os.path.basename, _build.sources()), "mean_table.cuh",
+                                               "small_linalg.cuh"])
     before = _build._digest()
     with open(csrc / "mean_table.cuh", "a") as f:
         f.write("// an edit\n")

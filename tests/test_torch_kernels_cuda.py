@@ -126,7 +126,8 @@ def test_lk_track_matches_chained_levels(dev, levels, kw):
     p1, p2, uv, valid = _track_inputs(dev, levels)
     K.reset_launch_counts()
     uv_f, ok_f = K.lk_track(p1, p2, uv, valid, **kw)
-    assert K.launch_counts == {"fast9": 0, "lk_level": 0, "lk_track": 1, "uwb_update": 0, "slam_init": 0}
+    assert K.launch_counts == {"fast9": 0, "lk_level": 0, "lk_track": 1, "uwb_update": 0, "slam_init": 0,
+                               "msckf_update": 0}
     uv_c, ok_c = K.lk_track_ref(p1, p2, uv, valid, level_fn=K.lk_level, **kw)
     assert K.launch_counts["lk_level"] == levels
     assert torch.equal(uv_f, uv_c) and torch.equal(ok_f, ok_c)

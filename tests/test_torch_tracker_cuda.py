@@ -111,7 +111,8 @@ def test_feed_through_kernels_matches_plain(dev, monkeypatch):
         # the whole feed: exactly one launch of each kernel, one packed read-back
         K.reset_launch_counts()
         ids, uvs = a.feed(t, img, gumbel=noise)
-        assert K.launch_counts == {"fast9": 1, "lk_track": 1, "lk_level": 0, "uwb_update": 0, "slam_init": 0}
+        assert K.launch_counts == {"fast9": 1, "lk_track": 1, "lk_level": 0, "uwb_update": 0, "slam_init": 0,
+                                   "msckf_update": 0}
         assert not (tr_k.cpu().numpy() & ~a.active).any()  # what was tracked stays active
         assert len(ids) == a.active.sum() >= 50 and uvs.shape == (len(ids), 2)
     assert n_stable >= 0.85 * n_both, (n_stable, n_both)
@@ -159,9 +160,10 @@ def test_stereo_and_descriptor_launch_counts(dev):
         K.reset_launch_counts()
         (ids_l, _), (ids_r, _) = st.feed(t, left, right)
         assert K.launch_counts == {"fast9": 1, "lk_track": 2 if k else 1, "lk_level": 0, "uwb_update": 0,
-                                   "slam_init": 0}
+                                   "slam_init": 0, "msckf_update": 0}
         assert len(ids_l) >= 20 and len(ids_r) >= 10
         K.reset_launch_counts()
         ids, _ = de.feed(t, left)
-        assert K.launch_counts == {"fast9": 1, "lk_track": 0, "lk_level": 0, "uwb_update": 0, "slam_init": 0}
+        assert K.launch_counts == {"fast9": 1, "lk_track": 0, "lk_level": 0, "uwb_update": 0, "slam_init": 0,
+                                   "msckf_update": 0}
         assert len(ids) >= 15

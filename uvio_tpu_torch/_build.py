@@ -109,6 +109,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "uvio_empty_launch": [I, I, I, P],
         "uvio_uwb_update": filter_entry,
         "uvio_slam_init": filter_entry,
+        "uvio_msckf_update": filter_entry,
+        "uvio_msckf_work_bytes": [I, I, I, I, I],
         "uvio_uwb_shared_memory": [P, P],
     }
     for name, argtypes in signatures.items():

@@ -64,6 +64,7 @@
 #include <cooperative_groups.h>
 
 #include "mean_table.cuh"
+#include "small_linalg.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -157,13 +158,6 @@ size_t smem_bytes(const Args& a) {
   return values * sizeof(T) + cap * sizeof(int) + D + a.table.rows;
 }
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // out[ri * ldo_r + b * ldo_b] = sum_k P[row(ri), cols[k]] hv[k * ldh + b0 + b]
 // for ri < nr, b < nb, with row(ri) = rlist[ri], or r0 + ri * rstep without
 // a list: one warp a row, which stages the row's values at `cols` in its
@@ -189,49 +183,6 @@ __device__ void rows_times(const T* P, int D, const int* rlist, int r0, int rste
       out[ri * ldo_r + b * ldo_b] = acc;
     }
   }
-}
-
-// In-place lower Cholesky factor of the n x n matrix A (row-major, leading
-// dimension ld, lower triangle read) by one warp; a pivot that is not
-// positive (or NaN) fills the factor with NaN, as the plain version's
-// failed factorization does.
-template <typename T>
-__device__ void chol_warp(T* A, int n, int ld) {
-  const int lane = threadIdx.x % 32;
-  bool ok = true;
-  for (int j = 0; j < n; ++j) {
-    const T d = A[j * ld + j];
-    ok = ok && d > T(0);
-    const T piv = sqrt(d);
-    __syncwarp();
-    for (int i = j + 1 + lane; i < n; i += 32) A[i * ld + j] /= piv;
-    __syncwarp();
-    for (int i = j + 1 + lane; i < n; i += 32) {
-      const T lij = A[i * ld + j];
-      for (int k = j + 1; k <= i; ++k) A[i * ld + k] -= lij * A[k * ld + j];
-    }
-    if (lane == 0) A[j * ld + j] = piv;
-    __syncwarp();
-  }
-  if (!ok)
-    for (int e = lane; e < n * ld; e += 32) A[e] = T(NAN);
-  __syncwarp();
-}
-
-// |L^-1 b|^2 for the lower factor L (n x n, leading dimension ld) by one
-// warp, b overwritten; the sum reaches lane 0
-template <typename T>
-__device__ T forward_norm2(const T* L, int n, int ld, T* b) {
-  const int lane = threadIdx.x % 32;
-  T sum = T(0);
-  for (int j = 0; j < n; ++j) {
-    const T y = b[j] / L[j * ld + j];
-    sum += y * y;
-    __syncwarp();
-    for (int i = j + 1 + lane; i < n; i += 32) b[i] -= L[i * ld + j] * y;
-    __syncwarp();
-  }
-  return sum;
 }
 
 template <typename T>
@@ -311,35 +262,7 @@ __global__ void __launch_bounds__(kThreads) slam_init_kernel(const Args a) {
     for (int e = tid; e < 3 * M; e += kThreads) hh[e] = hfi[e];
     __syncthreads();
     if (warp == 0) {
-      // LAPACK's geqr2 by one warp, the lanes over the rows: R above the
-      // diagonal, v below it (v_j = 1 implied)
-      for (int j = 0; j < 3; ++j) {
-        T part = T(0);
-        for (int k = j + 1 + lane; k < M; k += 32) part += hh[k * 3 + j] * hh[k * 3 + j];
-        const T xn2 = warp_sum(part), alpha = hh[j * 3 + j];
-        T tau = T(0), beta = alpha, scale = T(1);
-        if (xn2 != T(0)) {
-          beta = -copysign(sqrt(alpha * alpha + xn2), alpha);
-          tau = (beta - alpha) / beta;
-          scale = T(1) / (alpha - beta);
-        }
-        __syncwarp();
-        for (int k = j + 1 + lane; k < M; k += 32) hh[k * 3 + j] *= scale;
-        if (lane == 0) {
-          hh[j * 3 + j] = beta;
-          s_tau[j] = tau;
-        }
-        __syncwarp();
-        for (int c = j + 1; c < 3; ++c) {
-          T dot = T(0);
-          for (int k = j + 1 + lane; k < M; k += 32) dot += hh[k * 3 + j] * hh[k * 3 + c];
-          const T t = (hh[j * 3 + c] + warp_sum(dot)) * tau;
-          __syncwarp();
-          if (lane == 0) hh[j * 3 + c] -= t;
-          for (int k = j + 1 + lane; k < M; k += 32) hh[k * 3 + c] -= t * hh[k * 3 + j];
-          __syncwarp();
-        }
-      }
+      householder3_warp(hh, M, s_tau);
       if (lane < 9) rf[i * 9 + lane] = lane % 3 >= lane / 3 ? hh[lane] : T(0);
     }
     __syncthreads();
@@ -347,13 +270,7 @@ __global__ void __launch_bounds__(kThreads) slam_init_kernel(const Args a) {
     for (int col = tid; col <= D; col += kThreads) {
       T y[kMaxRows];
       for (int k = 0; k < M; ++k) y[k] = col < D ? hxi[static_cast<size_t>(k) * D + col] : ri[k];
-      for (int j = 0; j < 3; ++j) {
-        T t = y[j];
-        for (int k = j + 1; k < M; ++k) t += hh[k * 3 + j] * y[k];
-        t *= s_tau[j];
-        y[j] -= t;
-        for (int k = j + 1; k < M; ++k) y[k] -= t * hh[k * 3 + j];
-      }
+      reflect3(y, 1, hh, s_tau, M);
       bool nz = false;
       for (int k = 0; k < M; ++k) {
         nz = nz || y[k] != T(0);  // a NaN is live too

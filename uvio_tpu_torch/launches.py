@@ -10,8 +10,9 @@ launches recorded at the capture are added at each replay instead, and to
 `replay_counts[name]` too: the launches that came from graph replays.
 
 The kernels: the frontend's `fast9`, `lk_level` and `lk_track`
-(`frontend/kernels.py`) and the filter's `uwb_update` (`update/uwb.py`)
-and `slam_init` (`update/slam.py` `slam_delayed_init`).
+(`frontend/kernels.py`) and the filter's `uwb_update` (`update/uwb.py`),
+`slam_init` (`update/slam.py` `slam_delayed_init`) and `msckf_update`
+(`update/msckf.py`).
 
 The filter kernels share one C signature, `uvio_<name>(ptrs, ints,
 reals, stream)`, and a table of the state's mean blocks
@@ -27,7 +28,7 @@ import torch
 
 from .filter.ekf import MASKS
 
-launch_counts = {"fast9": 0, "lk_level": 0, "lk_track": 0, "uwb_update": 0, "slam_init": 0}
+launch_counts = {"fast9": 0, "lk_level": 0, "lk_track": 0, "uwb_update": 0, "slam_init": 0, "msckf_update": 0}
 replay_counts = dict(launch_counts)
 
 

@@ -332,10 +332,12 @@ class VioManager:
         self.slam_slot_by_fid: Dict[int, int] = {}
         self.slam_fail: Dict[int, int] = {}
         self.slam_consumed_t: Dict[int, float] = {}
-        # the fused frame's landmark counts for its timing row: updated
-        # (had observations in the plan), the delayed init's active
-        # candidates, initialized, marginalized
-        self._slam_counts = {"slam_updated": 0, "slam_cands": 0, "slam_inited": 0, "slam_marginalized": 0}
+        # the fused frame's counts for its timing row: the MSCKF features
+        # with observations; the landmarks updated (had observations in the
+        # plan), the delayed init's active candidates, initialized,
+        # marginalized
+        self._frame_counts = {"msckf_feats": 0, "slam_updated": 0, "slam_cands": 0, "slam_inited": 0,
+                              "slam_marginalized": 0}
 
         # the stages, one graphed call each (`uvio_tpu`'s `_jit_*`): the
         # staged path runs them all; the init replay and the fused path's
@@ -799,7 +801,7 @@ class VioManager:
         `pipeline.full_filter_step`, then update the host mirrors from the
         returned infos (`do_feature_propagate_update` + UWB drain + ZUPT)."""
         t0h = _time.perf_counter()
-        self._slam_counts = dict.fromkeys(self._slam_counts, 0)
+        self._frame_counts = dict.fromkeys(self._frame_counts, 0)
         with self._span("build"):
             fields, frame = self._build_fields(t)
         t1h = self._t_planned = _time.perf_counter()
@@ -923,10 +925,11 @@ class VioManager:
         # ---- feature triage -> padded obs tensors ----------------------
         feats = self._select_msckf_feats(t)
         uv_m, mask_m = self._build_obs(feats, cfg.max_msckf_in_update)
+        self._frame_counts["msckf_feats"] = int(mask_m.any(axis=(1, 2)).sum())
 
         uv_s, mask_s, slam_any_obs = self._slam_reobs()
         uv_c, mask_c, slots_c, fids_c = self._cand_rows(self._slam_candidates(t) if S > 0 else [])
-        self._slam_counts["slam_updated"] = int(mask_s.any(axis=(1, 2)).sum())
+        self._frame_counts["slam_updated"] = int(mask_s.any(axis=(1, 2)).sum())
 
         fields = dict(
             imu_t=tt, imu_w=ww, imu_a=aa,
@@ -1193,7 +1196,7 @@ class VioManager:
         used = set(self.slam_slot_by_fid.values())
         free_slots = [s for s in range(S) if s not in used]
         cands = cands[: min(len(free_slots), Fc)]
-        self._slam_counts["slam_cands"] = len(cands)
+        self._frame_counts["slam_cands"] = len(cands)
         slots = np.zeros(Fc, np.int32)
         fids = np.full(Fc, -1, np.int32)
         for i, f in enumerate(cands):
@@ -1208,7 +1211,7 @@ class VioManager:
             if fids[i] >= 0 and inited[i]:
                 self.slam_slot_by_fid[int(fids[i])] = int(slots[i])
                 self.slam_consumed_t[int(fids[i])] = t
-                self._slam_counts["slam_inited"] += 1
+                self._frame_counts["slam_inited"] += 1
 
     def _consume_msckf(self, feats):
         """MSCKF features are used once (the reference sets to_delete)."""
@@ -1231,7 +1234,8 @@ class VioManager:
         to `feed_features`' return, which sets it: `marginalization` and
         what follows it), so that they add up to the frame's time from
         `t_start` to its return; `capture_ms`, the warm-up + capture ms
-        when the frame's plan was new, else 0; the SLAM landmarks from the
+        when the frame's plan was new, else 0; `msckf_feats`, the MSCKF
+        features with observations in the bundle; the SLAM landmarks from the
         host's plan and bookkeeping, `slam_in_state` after the frame,
         `slam_updated` (with observations in the step), `slam_cands` (the
         delayed init's active candidates, `cand_ids >= 0`), `slam_inited`
@@ -1257,7 +1261,7 @@ class VioManager:
             "readback": t2h - t_enq,
             "capture_ms": getattr(self.full_step, "last_capture_ms", 0.0),
             "slam_in_state": len(self.slam_slot_by_fid),
-            **self._slam_counts,
+            **self._frame_counts,
         }
         if self.tracing:
             timed = _take_timed(self.full_step)
@@ -1407,7 +1411,7 @@ class VioManager:
         slot = self.slam_slot_by_fid.pop(fid)
         self.slam_fail.pop(fid, None)
         self.slam_consumed_t.pop(fid, None)
-        self._slam_counts["slam_marginalized"] += 1
+        self._frame_counts["slam_marginalized"] += 1
         # (the slot as a host tensor, as `uvio_tpu`'s `jnp.int32(slot)`: a
         # Python int would key a graph per slot value)
         self.state = self._stage_marg_slam(self.state, slot=self._host(slot, torch.int64))

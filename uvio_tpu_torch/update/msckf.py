@@ -15,16 +15,27 @@ Masked rows are exact zeros throughout, which leaves them inert. QR
 bases may differ from LAPACK build to LAPACK build by signs and
 rotations; every quantity used downstream (chi2 statistic, compressed
 normal equations) is invariant to that.
+
+`msckf_update` runs everything after the stacked systems (`_systems`:
+triangulation and `feature_system`) as one launch of a hand-written CUDA
+kernel (`csrc/msckf_update.cu`) on CUDA tensors, and as
+`msckf_update_ref`, the plain version above, on CPU tensors. The kernel
+works on the camera calibration and clone columns alone, where a
+feature's H_x lies, and compresses to that many rows; it changes the
+covariance and the mean blocks of `filter.ekf`'s `inject_table`. Under
+`torch.func.vmap` (the batched steps) the launch's batch rule runs one
+cluster of blocks a sequence, so a batch is one launch too.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import launches
 from ..cam import models as cam_models
-from ..filter.ekf import cho_solve, cholesky_or_nan, ekf_update
+from ..filter.ekf import MASKS, cho_solve, cholesky_or_nan, ekf_update, inject_table, table_ints
 from ..math import quat_to_rot, skew
-from ..math.chi2 import chi2_95
+from ..math.chi2 import _device_table, chi2_95
 from ..types.layout import StateLayout
 from ..types.state import FilterState
 from .triangulation import triangulate_batch
@@ -175,13 +186,9 @@ def compress_and_update(state, layout, Hx_proj, res_proj, keep, sigma_pix):
     return ekf_update(state, layout, Rf, r_c, r_diag, mask)
 
 
-def msckf_update(state, layout, cam_model, obs_uv, obs_mask, sigma_pix=1.0, chi2_mult=1.0):
-    """Full MSCKF update on a padded feature batch (UpdaterMSCKF::update).
-
-    obs_uv (F,K,C,2) raw pixel tracks aligned to clone slots; obs_mask
-    (F,K,C). Triangulates, builds Jacobians, projects, gates, compresses
-    and applies one EKF update. Returns (new_state, info dict).
-    """
+def _systems(state, layout, cam_model, obs_uv, obs_mask, sigma_pix):
+    """Triangulation and the stacked systems of a padded feature batch:
+    (H_x (F,M,D), H_f (F,M,3), res (F,M), row_mask (F,M), tri_ok (F,))."""
     L = layout
     K, C = L.max_clones, L.num_cams
     obs_uv = obs_uv.to(state.cov.dtype)
@@ -194,10 +201,16 @@ def msckf_update(state, layout, cam_model, obs_uv, obs_mask, sigma_pix=1.0, chi2
         uvn_obs.reshape(-1, K * C, 2), obs_mask.reshape(-1, K * C),
         R_val.reshape(K * C, 3, 3), p_val.reshape(K * C, 3),
     )
-
     Hx, H_f, res, row_mask = feature_system(
         state, layout, cam_model, feat_p, feat_p, obs_uv, obs_mask, sigma_pix
     )
+    return Hx, H_f, res, row_mask, tri_ok
+
+
+def msckf_update_ref(state, layout, cam_model, obs_uv, obs_mask, sigma_pix=1.0, chi2_mult=1.0):
+    """The plain version of `msckf_update`: batched complete QR
+    projection, gate, one tall reduced QR and a D-row `ekf_update`."""
+    Hx, H_f, res, row_mask, tri_ok = _systems(state, layout, cam_model, obs_uv, obs_mask, sigma_pix)
     # drop features that failed triangulation or have <2 observations
     ok = tri_ok & (row_mask.sum(1) >= 4)
     okf = ok.to(Hx.dtype)
@@ -213,3 +226,67 @@ def msckf_update(state, layout, cam_model, obs_uv, obs_mask, sigma_pix=1.0, chi2
     new_state, diag = compress_and_update(state, layout, Hx_proj, res_proj, keep, sigma_pix)
     info = {"tri_ok": tri_ok, "kept": keep, "num_used": keep.sum(), "cov_ok": diag["cov_ok"], "chi2": chi2}
     return new_state, info
+
+
+def msckf_update(state, layout, cam_model, obs_uv, obs_mask, sigma_pix=1.0, chi2_mult=1.0):
+    """Full MSCKF update on a padded feature batch (UpdaterMSCKF::update).
+
+    obs_uv (F,K,C,2) raw pixel tracks aligned to clone slots; obs_mask
+    (F,K,C). Triangulates, builds Jacobians, projects, gates, compresses
+    and applies one EKF update. Returns (new_state, info dict). CUDA
+    tensors take the kernel from the stacked systems on, CPU tensors
+    `msckf_update_ref` (module docstring).
+    """
+    if not launches.route(state.cov, obs_uv, obs_mask):
+        return msckf_update_ref(state, layout, cam_model, obs_uv, obs_mask, sigma_pix, chi2_mult)
+    L = layout
+    Hx, H_f, res, row_mask, tri_ok = _systems(state, L, cam_model, obs_uv, obs_mask, sigma_pix)
+    table = inject_table(L)
+    cov, *fields, kept, chi2, num_used, cov_ok = launches.Launch.apply(
+        _launch, state.cov, Hx, H_f, res, row_mask, tri_ok, _device_table(state.cov.device),
+        [getattr(state, m) for m in MASKS], [getattr(state, b.field) for b in table],
+        kernel_ints(L, obs_uv.shape[-4]), (float(sigma_pix) ** 2, float(chi2_mult)))
+    new = state.replace(cov=cov, **{b.field: f for b, f in zip(table, fields)})
+    return new, {"tri_ok": tri_ok, "kept": kept, "num_used": num_used, "cov_ok": cov_ok, "chi2": chi2}
+
+
+# ---------------------------------------------------------------------------
+# The kernel's arguments
+# ---------------------------------------------------------------------------
+
+def kernel_ints(layout: StateLayout, F: int) -> list:
+    """The layout's part of the kernel's int arguments (`uvio_msckf_update`
+    in `csrc/msckf_update.cu`, from `dim` on): dim, F, M (a feature's
+    rows, 2 K C), calib_off and W = slam_off - calib_off (the camera
+    calibration and clone columns, `feature_system`'s support, which sizes
+    the kernel's shared memory), then the table (`filter.ekf.table_ints`).
+    The kernel refuses a table or shape it does not take."""
+    L = layout
+    return [L.dim, F, 2 * L.max_clones * L.num_cams, L.calib_off, L.slam_off - L.calib_off,
+            *table_ints(inject_table(L))]
+
+
+def _launch(batch, cov, hx, hf, res, row_mask, tri_ok, quantiles, masks, fields, ints, reals):
+    """One launch for `batch` sequences held back to back in each tensor:
+    (cov, *fields, kept, chi2, num_used, cov_ok), freshly allocated."""
+    from .. import _build
+
+    launches.check_table("msckf_update", batch, cov, masks, fields, ints[5:])
+    dtype, device = cov.dtype, cov.device
+    D, F, M, W = ints[0], ints[1], ints[2], ints[4]
+    launches.check("msckf_update", device, ("cov", cov, dtype, batch * D * D),
+                   ("H_x", hx, dtype, batch * F * M * D), ("H_f", hf, dtype, batch * F * M * 3),
+                   ("res", res, dtype, batch * F * M), ("row_mask", row_mask, torch.bool, batch * F * M),
+                   ("tri_ok", tri_ok, torch.bool, batch * F),
+                   ("chi2 quantiles", quantiles, torch.float64, quantiles.numel()))
+    cov_out = torch.empty_like(cov)
+    kept = torch.empty_like(tri_ok)
+    chi2 = torch.empty((batch * F,), dtype=dtype, device=device).reshape(tri_ok.shape)
+    num_used = torch.empty(tri_ok.shape[:-1], dtype=torch.int64, device=device)
+    cov_ok = torch.empty(tri_ok.shape[:-1], dtype=torch.bool, device=device)
+    # a sequence's workspace, as the library lays it out
+    per_seq = _build.load().uvio_msckf_work_bytes(int(dtype == torch.float64), D, F, M, W)
+    work = torch.empty((batch * per_seq,), dtype=torch.uint8, device=device)
+    ptrs = [cov, cov_out, hx, hf, res, row_mask, tri_ok, quantiles, *masks, kept, chi2, num_used, cov_ok, work]
+    outs = launches.launch("msckf_update", batch, ptrs, fields, ints, reals)
+    return (cov_out, *outs, kept, chi2, num_used, cov_ok)
